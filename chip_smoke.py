@@ -1,0 +1,560 @@
+"""Drive the PyTorch port of PASTA on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one line of findings each (a failed phase makes the script exit
+non-zero and print no result):
+
+  1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. main    — the analysis path (``repro_torch.launch.analyze.run``) on
+               glm4-9b at full width and depth for 4 steps, on the card; the
+               fused kernel must launch once per TRACE_BUFFER event; then
+               the same forward uninstrumented, for the slowdown;
+  3. fallback — a fine session without a hotness map (launches the object
+               histogram kernel) and one whose hotness map is too large to
+               fuse (launches the object and hotness kernels), each held
+               against the same session on the CPU;
+  4. kernels — each kernel against its plain PyTorch version on the card, at
+               the main path's shapes and at edge cases (equal counts
+               required), timed on the device with ``torch.profiler`` and
+               per call with CUDA events;
+  5. cpu     — the same ``run`` on reduced glm4-9b on the card and on the
+               CPU: equal reports; and the model's logits on the card
+               against the CPU on the same weights;
+  6. profile — one more step of the main path under ``torch.profiler``,
+               with host spans around the instrumenter's layers: where the
+               host and device time go and the device's idle share (a
+               traced run, so its wall time includes the tracing).
+
+Then one JSON line of kernels, the card's name and power limit, and the
+result line.  Launch counts are reset just before each path runs and read
+just after; the comparisons of phase 4 run outside those windows.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
+STEPS = 4
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL {msg}", flush=True)
+    sys.exit(1)
+
+
+if not torch.cuda.is_available():
+    fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+import repro_torch.configs as configs                      # noqa: E402
+import repro_torch.core as pasta                           # noqa: E402
+from repro_torch.core.instrument import EagerInstrumenter  # noqa: E402
+from repro_torch.core.pool import MemoryPool               # noqa: E402
+from repro_torch.core.processor import EventProcessor      # noqa: E402
+from repro_torch.core.tools import LocatorTool             # noqa: E402
+from repro_torch.kernels import build, ops, ref            # noqa: E402
+from repro_torch.launch import analyze                     # noqa: E402
+from repro_torch.models import forward                     # noqa: E402
+
+
+def cuda_ms(fn, iters: int = 50) -> float:
+    """Time per call of ``fn()`` over ``iters`` back-to-back calls between
+    two CUDA events, after a warm-up.  At these sizes it includes the host's
+    work per call (launch, allocation) where that is slower than the
+    device."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters: int = 50):
+    """Device time per call of everything ``fn()`` launches (kernels,
+    memsets, copies), from the CUPTI records of ``torch.profiler``; None
+    when the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3 if us > 0 else None
+
+
+class TraceShapes:
+    """Observer of a run: counts TRACE_BUFFER events, sums their analysis
+    time, keeps the largest one's object table (N = sum of its object
+    counts, since every record lies in a live tensor) and notes when the
+    steps start (after the weights are made)."""
+
+    def __init__(self):
+        self.events = 0
+        self.records = 0
+        self.analysis_s = 0.0
+        self.largest = None          # (n_records, objects)
+        self.t_steps = None
+
+    def __call__(self, session):
+        session.handler.subscribe(self._on, kinds=("trace_buffer",))
+        torch.cuda.synchronize()
+        self.t_steps = time.perf_counter()
+
+    def _on(self, ev):
+        self.events += 1
+        self.analysis_s += ev.attrs["analysis_s"]
+        n = int(np.sum(ev.attrs["object_counts"]))
+        self.records += n
+        objs = ev.attrs["objects"]
+        if self.largest is None or (n, len(objs)) > (self.largest[0],
+                                                     len(self.largest[1])):
+            self.largest = (n, list(objs))
+
+
+# ------------------------------------------------------------------ phase 1
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    built = build.build_all()
+    for name in ops.launches:
+        build.load(name)
+    print(f"build: {len(built)} kernels compiled by nvcc for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s ({', '.join(built) or 'cached'})",
+          flush=True)
+
+
+# ------------------------------------------------------------------ phase 2
+def phase_main():
+    cfg = configs.get("glm4-9b")
+    hot = analyze.hotness_config(cfg, STEPS)
+    shapes = TraceShapes()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reports, logits, schedule = analyze.run(cfg, STEPS, "cuda", hot,
+                                            seed=SEED, observe=shapes)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wall, steps_s = t1 - t0, t1 - shapes.t_steps
+    launched = dict(ops.launches)
+    w, h = reports["workingset"], reports["hotness"]
+    print(f"main: glm4-9b full width, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {STEPS} steps in "
+          f"{wall:.2f} s ({steps_s:.2f} s after making the weights); "
+          f"{shapes.events} trace buffers, analysis_s "
+          f"{shapes.analysis_s:.3f}; launches {launched}; hotness "
+          f"{hot['n_tbins']}x{hot['n_blocks']} blocks of "
+          f"{(512 << hot['block_shift']) >> 20} MiB", flush=True)
+    print(f"main report: working set max={w['working_set_mb']:.2f}MB "
+          f"median={w['median_ws_mb']:.2f}MB footprint="
+          f"{w['footprint_mb']:.1f}MB; hotness persistent="
+          f"{len(h['persistent_blocks'])} bursty={len(h['bursty_blocks'])} "
+          f"cold={h['cold_blocks']} accesses={h['total_accesses']}; "
+          f"{len(schedule)} scheduled operators", flush=True)
+    if launched["trace_aggregate"] != shapes.events or shapes.events == 0:
+        fail(f"main: fused kernel launched {launched['trace_aggregate']} "
+             f"times for {shapes.events} trace buffers")
+    if launched["object_histogram"] or launched["hotness_histogram"]:
+        fail(f"main: unfused kernels launched on the fused path {launched}")
+    if tuple(logits.shape) != (2, 64, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"main: logits {tuple(logits.shape)} not finite or misshapen")
+    if not 0 < h["total_accesses"] or w["working_set_mb"] <= 0:
+        fail("main: empty reports")
+    # the map covers the parameter bytes, so no record falls outside it
+    if h["total_accesses"] != shapes.records:
+        fail(f"main: hotness map holds {h['total_accesses']} of "
+             f"{shapes.records} records")
+    # the same forward without instrumentation: the analysis overhead
+    params, x = analyze.make_inputs(cfg, SEED, "cuda")
+    plain = []
+    with torch.inference_mode():
+        for _ in range(STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(params, x, cfg)
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t0)
+    del params
+    plain_step = float(np.median(plain[1:]))         # first one warms up
+    step = steps_s / STEPS
+    print(f"main overhead: instrumented step {step * 1e3:.1f} ms vs "
+          f"uninstrumented forward {plain_step * 1e3:.2f} ms (median of "
+          f"{STEPS}): {step / plain_step:.1f}x; analysis_s per trace buffer "
+          f"{shapes.analysis_s / shapes.events * 1e3:.3f} ms", flush=True)
+    return {"launches": launched["trace_aggregate"], "hot": hot,
+            "largest": shapes.largest}
+
+
+# ------------------------------------------------------------------ phase 3
+def _fine_session(cfg, device, hotness):
+    """A fine-grained session over reduced glm4-9b; returns its reports."""
+    params, x = analyze.make_inputs(cfg, SEED, "cpu")
+    tools = ["workingset"]
+    if hotness is not None:
+        tools.append(pasta.HotnessTool(n_tbins=hotness["n_tbins"],
+                                       n_blocks=hotness["n_blocks"]))
+    moved, xd = _to(params, device), x.to(device)
+    session = pasta.Session(tools=tools, hotness=hotness, instrument=True,
+                            fine=True, torch_device=device,
+                            name=f"fallback/{device}")
+    # time bins from the step, not the wall clock, so card and CPU agree
+    session.instrumenter.time_source = \
+        lambda: float(max(session.handler._step, 0))
+    with torch.inference_mode(), session:
+        for s in range(2):
+            session.handler.step_start(s)
+            forward(moved, xd, cfg)
+            session.handler.step_end(s)
+    return session.reports().data
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_fallback() -> dict:
+    cfg = configs.reduced(configs.get("glm4-9b"))
+    big = {"base": pasta.CHUNK_ALIGN, "n_blocks": 32768, "n_tbins": 64,
+           "t_max": 2.0, "block_shift": 5}
+    if ops.can_fuse(64, big["n_blocks"], big["n_tbins"], device="cuda"):
+        fail("fallback: can_fuse accepted an 8 MiB hotness map")
+    counts = {}
+    for label, hotness in (("no-hotness", None), ("unfusable", big)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = _fine_session(cfg, "cuda", hotness)
+        torch.cuda.synchronize()
+        launched = dict(ops.launches)
+        want = _fine_session(cfg, "cpu", hotness)
+        print(f"fallback {label}: launches {launched}; reports equal to "
+              f"the CPU's: {got == want}", flush=True)
+        if got != want:
+            fail(f"fallback {label}: card {got} != cpu {want}")
+        if launched["object_histogram"] == 0 or launched["trace_aggregate"]:
+            fail(f"fallback {label}: wrong kernels launched {launched}")
+        if hotness is not None and launched["hotness_histogram"] == 0:
+            fail(f"fallback {label}: hotness kernel never launched")
+        for k, v in launched.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+# ------------------------------------------------------------------ phase 4
+def _units(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, dtype=np.int32)).cuda()
+
+
+def _trace(rng, n, objects, misses=True):
+    """``n`` records inside ``objects`` (unit ranges) plus edge records:
+    below the first start, at/after the last end, negative, and in the gaps
+    and empty ranges."""
+    starts = np.asarray([s for s, _ in objects], dtype=np.int64)
+    sizes = np.asarray([max(e - s, 1) for s, e in objects], dtype=np.int64)
+    pick = rng.integers(0, len(objects), size=n)
+    a = starts[pick] + rng.integers(0, sizes[pick])
+    if misses and n >= 16:
+        a[::7] = starts[0] - 1 - rng.integers(0, 1000, size=a[::7].shape)
+        a[3::11] = objects[-1][1] + rng.integers(0, 1000,
+                                                 size=a[3::11].shape)
+        a[5::13] = -1 - rng.integers(0, 1 << 20, size=a[5::13].shape)
+        a[1::17] = objects[-1][1]
+    return a
+
+
+def _objects(rng, k, empty_every=0):
+    """``k`` sorted disjoint unit ranges; every ``empty_every``-th is empty
+    and gaps are 0 or 64 units, so empty ranges may share a start with the
+    next object."""
+    sizes = rng.integers(1, 8192, size=k)
+    if empty_every:
+        sizes[::empty_every] = 0
+    gaps = rng.integers(0, 2, size=k) * 64
+    starts = 4096 + np.cumsum(np.concatenate([[0], (sizes + gaps)[:-1]]))
+    return [(int(s), int(s + z)) for s, z in zip(starts, sizes)]
+
+
+def _compare(name, got, want) -> int:
+    got = [g.cpu() for g in (got if isinstance(got, tuple) else (got,))]
+    want = [w.cpu() for w in (want if isinstance(want, tuple) else (want,))]
+    if any(g.shape != w.shape for g, w in zip(got, want)):
+        fail(f"kernels: {name} has another shape than its plain version")
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    if err:
+        fail(f"kernels: {name} differs from its plain version by {err}")
+    return err
+
+
+def phase_kernels(main, fallback) -> list:
+    rng = np.random.default_rng(SEED)
+    hot = main["hot"]
+    base = hot["base"] >> ops.UNIT_SHIFT
+    shift, n_blocks, n_tbins = hot["block_shift"], hot["n_blocks"], \
+        hot["n_tbins"]
+    n_main, objs_bytes = main["largest"]
+    objs_main = [(int(s) >> ops.UNIT_SHIFT, int(e) >> ops.UNIT_SHIFT)
+                 for s, e in objs_bytes]
+
+    # edge cases first: counts must be equal, nothing is timed
+    cases = 0
+    for n in (0, 1, 1000, 65536, 65537):
+        for k in (1, 16, 300, 3000, 25000):      # 12*25000 B > shared memory
+            objs = _objects(rng, k, empty_every=5 if k > 4 else 0)
+            a = _units(_trace(rng, n, objs))
+            s = _units([o[0] for o in objs])
+            e = _units([o[1] for o in objs])
+            _compare(f"object_histogram n={n} k={k}",
+                     ops.object_histogram_t(a, s, e),
+                     ref.object_histogram_ref(a, s, e))
+            cases += 1
+        for tb_n, nb, sh in ((1, 1, 0), (4, 2241, 15), (16, 512, 5),
+                             (64, 32768, 5), (4, 4096, 12)):
+            a = _units(_trace(rng, n, objs_main))
+            tb = _units(rng.integers(-1, tb_n + 1, size=n))
+            _compare(f"hotness_histogram n={n} {tb_n}x{nb}",
+                     ops.hotness_histogram_t(a, tb, base, nb, tb_n, sh),
+                     ref.hotness_histogram_ref(a, tb, base, nb, tb_n, sh))
+            cases += 1
+            k = len(objs_main)
+            if not ops.can_fuse(k, nb, tb_n):
+                continue            # the two kernels above cover it
+            s = _units([o[0] for o in objs_main])
+            e = _units([o[1] for o in objs_main])
+            _compare(f"trace_aggregate n={n} k={k} {tb_n}x{nb}",
+                     ops.trace_aggregate_t(a, tb, s, e, base, nb, tb_n, sh),
+                     ref.trace_aggregate_ref(a, tb, s, e, base, nb, tb_n,
+                                             sh))
+            cases += 1
+    print(f"kernels: {cases} edge cases equal to the plain versions "
+          "(counts compared exactly)", flush=True)
+
+    # timing at the main path's largest trace buffer
+    k = len(objs_main)
+    a = _units(_trace(rng, n_main, objs_main, misses=False))
+    tb = _units(np.full(n_main, n_tbins - 1))
+    s = _units([o[0] for o in objs_main])
+    e = _units([o[1] for o in objs_main])
+    idx = torch.searchsorted(s, a, right=True) - 1
+    ok = (idx >= 0) & (a < e[idx.clamp(0, k - 1)])
+    obj_bins = idx[ok].long()
+    blk = (a - base) >> shift
+    okb = (blk >= 0) & (blk < n_blocks)
+    hot_bins = (tb[okb].long() * n_blocks + blk[okb])
+    cells = n_tbins * n_blocks
+    shapes = f"N={n_main} K={k} map {n_tbins}x{n_blocks}"
+    rows = [
+        ("object_histogram", "src/repro_torch/kernels/csrc/object_histogram.cu",
+         "src/repro/kernels/trace_aggregate.py:35",
+         lambda: ops.object_histogram_t(a, s, e),
+         lambda: ref.object_histogram_ref(a, s, e),
+         lambda: torch.bincount(obj_bins, minlength=k),
+         4 * n_main + 8 * k + 4 * k, fallback["object_histogram"],
+         "fallback (no hotness map, or can_fuse false)"),
+        ("hotness_histogram",
+         "src/repro_torch/kernels/csrc/hotness_histogram.cu",
+         "src/repro/kernels/hotness.py:30",
+         lambda: ops.hotness_histogram_t(a, tb, base, n_blocks, n_tbins,
+                                         shift),
+         lambda: ref.hotness_histogram_ref(a, tb, base, n_blocks, n_tbins,
+                                           shift),
+         lambda: torch.bincount(hot_bins, minlength=cells),
+         8 * n_main + 4 * cells, fallback["hotness_histogram"],
+         "fallback (can_fuse false)"),
+        ("trace_aggregate", "src/repro_torch/kernels/csrc/trace_aggregate.cu",
+         "src/repro/kernels/trace_aggregate.py:73",
+         lambda: ops.trace_aggregate_t(a, tb, s, e, base, n_blocks, n_tbins,
+                                       shift),
+         lambda: ref.trace_aggregate_ref(a, tb, s, e, base, n_blocks,
+                                         n_tbins, shift),
+         None, 8 * n_main + 8 * k + 4 * k + 4 * cells, main["launches"],
+         "main (glm4-9b full width)"),
+    ]
+    out = []
+    for name, src, replaces, kern, plain, lib, nbytes, launches, path in rows:
+        err = _compare(f"{name} at {shapes}", kern(), plain())
+        # plain, kernel, kernel, plain: compare within one call
+        calls = [cuda_ms(f) for f in (plain, kern, kern, plain)]
+        dev = [device_ms(f) for f in (plain, kern, kern, plain)]
+        lib_call = cuda_ms(lib) if lib is not None else None
+        lib_dev = device_ms(lib) if lib is not None else None
+        timing = "profiler"
+        if None in dev or (lib is not None and lib_dev is None):
+            # no CUPTI records on this machine: per-call event times
+            timing, dev, lib_dev = "cuda_events", calls, lib_call
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": min(dev[1], dev[2]),
+               "plain_ms": min(dev[0], dev[3]), "bound_ms": bound,
+               "bound_by": "bytes", "library_ms": lib_dev, "timing": timing,
+               "call_ms": min(calls[1], calls[2]),
+               "plain_call_ms": min(calls[0], calls[3]),
+               "library_call_ms": lib_call, "path": path, "shapes": shapes}
+        out.append(row)
+        print(f"kernel {name} at {shapes}: device ms kernel={row['ms']:.5f} "
+              f"plain={row['plain_ms']:.5f} library={lib_dev} "
+              f"bound={bound:.6f}; per call (events) kernel="
+              f"{row['call_ms']:.5f} plain={row['plain_call_ms']:.5f} "
+              f"library={lib_call}; launches={launches} ({path})",
+              flush=True)
+    return out
+
+
+# ------------------------------------------------------------------ phase 5
+def phase_cpu() -> None:
+    cfg = configs.reduced(configs.get("glm4-9b"))
+    ops.reset_launches()
+    card, _l, sched_card = analyze.run(cfg, STEPS, "cuda", seed=SEED)
+    cpu, _l, sched_cpu = analyze.run(cfg, STEPS, "cpu", seed=SEED)
+    same = card.data == cpu.data and \
+        [(k.name, k.tensors) for k in sched_card] == \
+        [(k.name, k.tensors) for k in sched_cpu]
+    # model numerics: the same weights on the card and on the CPU
+    params, x = analyze.make_inputs(cfg, SEED, "cpu")
+    with torch.inference_mode():
+        want = forward(params, x, cfg)[0]
+        got = forward(_to(params, "cuda"), x.cuda(), cfg)[0].cpu()
+    # float32 throughout (TF32 off); sums are ordered differently
+    err = float((got - want).abs().max())
+    close = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    print(f"cpu: reduced glm4-9b reports card == cpu: {same} (fused "
+          f"launches {ops.launches['trace_aggregate']}); logits max abs "
+          f"diff card vs cpu {err:.3e} (rtol=atol=1e-4: {close})",
+          flush=True)
+    if not same:
+        fail(f"cpu: reports differ: card {card.data} cpu {cpu.data}")
+    if not close:
+        fail(f"cpu: logits differ by {err}")
+
+
+# ------------------------------------------------------------------ phase 6
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+class HostSpans:
+    """Wall-clock totals of the analysis path's layers, by wrapping their
+    methods for the duration of a ``with`` block."""
+
+    LAYERS = (("forward", analyze, "forward"),
+              ("op", EagerInstrumenter, "op"),
+              ("pool alloc", MemoryPool, "alloc"),
+              ("trace emission", EagerInstrumenter, "_emit_trace"),
+              ("trace reduction", EventProcessor, "_preprocess_trace"),
+              ("locator stack capture", LocatorTool, "_capture_stack"),
+              ("frees", EagerInstrumenter, "_on_free"))
+
+    def __init__(self):
+        self.totals = dict.fromkeys([name for name, *_ in self.LAYERS], 0.0)
+        self._orig = []
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.totals[name] += time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        for name, cls, attr in self.LAYERS:
+            fn = getattr(cls, attr)
+            self._orig.append((cls, attr, fn))
+            setattr(cls, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, attr, fn in self._orig:
+            setattr(cls, attr, fn)
+
+
+def phase_profile(hot) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    cfg = configs.get("glm4-9b")
+    shapes = TraceShapes()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t = []
+
+    def observe(session):        # after set-up, before the first step
+        shapes(session)
+        prof.start()
+        t.append(time.perf_counter())
+    with HostSpans() as spans:
+        analyze.run(cfg, 1, "cuda", hot, seed=SEED, observe=observe)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t[0]) * 1e6
+        prof.stop()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups = {"trace kernels": ("histogram_kernel", "trace_aggregate_kernel"),
+              "memcpy": ("memcpy",), "memset": ("memset",)}
+    sums = dict.fromkeys([*groups, "model and other"], 0.0)
+    for e in dev:
+        name = e.name.lower()
+        key = next((g for g, keys in groups.items()
+                    if any(k in name for k in keys)), "model and other")
+        sums[key] += e.time_range.elapsed_us()
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in sums.items())
+    host = ", ".join(f"{k} {v * 1e3:.1f} ms"
+                     for k, v in spans.totals.items())
+    print(f"profile: one glm4-9b full-width step (traced), wall "
+          f"{wall_us / 1e3:.1f} ms, {shapes.events} trace buffers; host "
+          f"spans: {host}, analysis_s {shapes.analysis_s * 1e3:.1f} ms; "
+          f"device busy {busy / 1e3:.2f} ms, idle share "
+          f"{1 - busy / wall_us:.4f}; device time by kind: {parts}",
+          flush=True)
+    if not dev:
+        print("profile: the profiler recorded no device activity",
+              flush=True)
+
+
+def main() -> None:
+    phase_build()
+    main_run = phase_main()
+    fallback = phase_fallback()
+    kernels = phase_kernels(main_run, fallback)
+    phase_cpu()
+    phase_profile(main_run["hot"])
+    print(json.dumps({"kernels": kernels}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,167 @@
+"""Transformer layers of the dense path: RMSNorm, RoPE, GQA attention, GLU
+MLPs, as plain functions on tensors and dicts of parameters.
+
+Numerics follow the JAX reference: matmuls in the config compute dtype
+(bf16 at full width) with each weight cast to it, softmax/norm statistics
+in f32.  Parameter and activation layouts are the reference's, so the
+parity tests compare like with like.  Every operator reports itself
+through :func:`~repro_torch.core.instrument.op_hook` under the reference's
+operator name; the hooked tensors and the points where they die mirror the
+reference, since they decide the instrumented event stream.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.instrument import op_hook
+from .config import ModelConfig
+
+NEG_INF = -1e30
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` → ``torch.bfloat16`` (config dtype names)."""
+    dt = getattr(torch, name)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"not a dtype: {name!r}")
+    return dt
+
+
+# --------------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S).  Rotates the two halves of each
+    head (not interleaved pairs)."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    inv = rope_freqs(head_dim, theta, x.device)               # (half,)
+    angles = positions.to(torch.float32)[..., None] * inv
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+def init_attention(cfg: ModelConfig, n: int, gen: torch.Generator, dtype,
+                   device) -> dict:
+    """Stacked attention weights for ``n`` layers (leading layer axis)."""
+    d, hd = cfg.d_model, cfg.head_dim
+
+    def normal(shape, scale):
+        return torch.randn((n, *shape), generator=gen, dtype=dtype,
+                           device=device).mul_(scale)
+    s = 1.0 / math.sqrt(d)
+    return {
+        "wq": normal((d, cfg.n_heads, hd), s),
+        "wk": normal((d, cfg.n_kv_heads, hd), s),
+        "wv": normal((d, cfg.n_kv_heads, hd), s),
+        "wo": normal((cfg.n_heads, hd, d), 1.0 / math.sqrt(cfg.q_dim)),
+    }
+
+
+def _qkv(p, x, cfg: ModelConfig, positions):
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    op_hook("attn.qkv_proj", (x, p["wq"], p["wk"], p["wv"]), (q, k, v))
+    return q, k, v
+
+
+def _group(q, n_kv: int):
+    """(B,S,H,D) -> (B,S,Hkv,G,D): query head h reads KV head h // G."""
+    b, s, h, d_ = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d_)
+
+
+def _sdpa_dense(q, k, v, causal: bool, softmax_dtype=torch.float32):
+    """q:(B,S,Hkv,G,D) k/v:(B,T,Hkv,D).  Full-scores attention: scores in
+    ``softmax_dtype``, masked with NEG_INF, weights cast back to q's dtype
+    before the PV product."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bshgd,bthd->bhgst", q, k).to(softmax_dtype) \
+        * scale
+    if causal:
+        s_len, t_len = scores.shape[-2], scores.shape[-1]
+        qi = torch.arange(s_len, device=q.device)[:, None]
+        ki = torch.arange(t_len, device=q.device)[None, :]
+        scores = torch.where(ki <= qi, scores,
+                             torch.tensor(NEG_INF, dtype=softmax_dtype,
+                                          device=q.device))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    w = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", w, v)
+    return out.reshape(*out.shape[:2], -1, out.shape[-1])    # (B,S,H,D)
+
+
+def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor):
+    """Returns (out, new_cache) with new_cache = {"k","v": (B,T,Hkv,D),
+    "length": (B,) int32}, as the reference's prefill does."""
+    if x.shape[1] > cfg.attn_blocked_threshold:
+        raise NotImplementedError("blocked (flash-style) attention is not "
+                                  "ported yet")
+    q, k, v = _qkv(p, x, cfg, positions)
+    qg = _group(q, cfg.n_kv_heads)
+    out = _sdpa_dense(qg, k, v, cfg.causal,
+                      softmax_dtype=torch_dtype(cfg.attn_softmax_dtype))
+    new_cache = {"k": k, "v": v,
+                 "length": torch.full((x.shape[0],), x.shape[1],
+                                      dtype=torch.int32, device=x.device)}
+    op_hook("attn.sdpa", (q, k, v), (out,))
+    y = torch.einsum("bshd,hdm->bsm", out, p["wo"].to(x.dtype))
+    op_hook("attn.out_proj", (out, p["wo"]), (y,))
+    return y, new_cache
+
+
+# ----------------------------------------------------------------------- mlp
+def init_mlp(cfg: ModelConfig, n: int, gen: torch.Generator, dtype,
+             device) -> dict:
+    """Stacked GLU MLP weights for ``n`` layers (leading layer axis)."""
+    d, f = cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale):
+        return torch.randn((n, *shape), generator=gen, dtype=dtype,
+                           device=device).mul_(scale)
+    return {
+        "w_gate": normal((d, f), 1.0 / math.sqrt(d)),
+        "w_up": normal((d, f), 1.0 / math.sqrt(d)),
+        "w_down": normal((f, d), 1.0 / math.sqrt(f)),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
+    u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+    # jax.nn.gelu defaults to the tanh approximation
+    act = F.gelu(g, approximate="tanh") if cfg.mlp == "geglu" else F.silu(g)
+    h = act * u
+    y = torch.einsum("bsf,fd->bsd", h, p["w_down"].to(dt))
+    op_hook("mlp.glu", (x, p["w_gate"], p["w_up"], p["w_down"]), (g, u, y))
+    return y

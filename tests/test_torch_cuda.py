@@ -1,0 +1,92 @@
+"""Card-only tests of the port (marker ``cuda``): each CUDA kernel against
+its plain version, and the analysis path on the card against the CPU.
+
+They import neither ``jax`` nor the JAX package, so they run where only
+PyTorch is installed, and skip where ``torch.cuda.is_available()`` is
+false.  On a machine with the card::
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.configs as configs
+from repro_torch.core import events as tevents
+from repro_torch.core import session as tsession
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import analyze
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _port_state():
+    tevents.reset_seq()
+    tsession.reset_state()
+    yield
+    tsession.reset_state()
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _units(x, dev):
+    return torch.from_numpy(np.asarray(x, dtype=np.int32)).to(dev)
+
+
+def _table(rng, k):
+    """``k`` sorted disjoint unit ranges, some empty, some sharing a start
+    with the next one."""
+    sizes = rng.integers(0, 4096, size=k)
+    gaps = rng.integers(0, 2, size=k) * 64
+    starts = 4096 + np.cumsum(np.concatenate([[0], (sizes + gaps)[:-1]]))
+    return starts, starts + sizes
+
+
+@pytest.mark.parametrize("k", [16, 30000])        # 12*30000 B > shared memory
+@pytest.mark.parametrize("nb,ntb", [(512, 4), (32768, 64)])
+def test_kernels_equal_plain_versions(rng, card, k, nb, ntb):
+    starts, ends = _table(rng, k)
+    a = starts[rng.integers(0, k, 65536)] + rng.integers(0, 4096, 65536)
+    a[::7] = -5
+    a[1::9] = ends[-1]
+    a[2::11] = starts[0] - 1
+    a, s, e = _units(a, card), _units(starts, card), _units(ends, card)
+    t = _units(rng.integers(-1, ntb + 1, a.shape[0]), card)
+    base = 4096
+    ops.reset_launches()
+    assert torch.equal(ops.object_histogram_t(a, s, e),
+                       ref.object_histogram_ref(a, s, e))
+    assert torch.equal(ops.hotness_histogram_t(a, t, base, nb, ntb, 3),
+                       ref.hotness_histogram_ref(a, t, base, nb, ntb, 3))
+    fused = ops.can_fuse(k, nb, ntb)
+    assert fused == (k == 16 and nb == 512)
+    if fused:
+        got = ops.trace_aggregate_t(a, t, s, e, base, nb, ntb, 3)
+        want = ref.trace_aggregate_ref(a, t, s, e, base, nb, ntb, 3)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    assert ops.launches == {"object_histogram": 1, "hotness_histogram": 1,
+                            "trace_aggregate": int(fused)}
+
+
+def test_analyze_on_the_card_equals_the_cpu(card):
+    """Reduced glm4-9b: the card's reports equal the CPU's, every trace
+    buffer went through the fused kernel."""
+    cfg = configs.reduced(configs.get("glm4-9b"))
+    buffers = []
+    ops.reset_launches()
+    got, logits, _ = analyze.run(
+        cfg, 2, "cuda",
+        observe=lambda s: s.handler.subscribe(buffers.append,
+                                              kinds=("trace_buffer",)))
+    want, _, _ = analyze.run(cfg, 2, "cpu")
+    assert got.data == want.data
+    assert ops.launches["trace_aggregate"] == len(buffers) > 0
+    assert logits.device.type == "cuda" and bool(torch.isfinite(logits).all())

@@ -5,34 +5,51 @@
 Phases, one line of findings each (a failed phase makes the script exit
 non-zero and print no result):
 
-  1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  2. main    — the analysis path (``repro_torch.launch.analyze.run``) on
-               glm4-9b at full width and depth for 4 steps, on the card; the
-               fused kernel must launch once per TRACE_BUFFER event; then
-               the same forward uninstrumented, for the slowdown;
-  3. fallback — a fine session without a hotness map (launches the object
-               histogram kernel) and one whose hotness map is too large to
-               fuse (launches the object and hotness kernels), each held
-               against the same session on the CPU;
-  4. kernels — each kernel against its plain PyTorch version on the card, at
-               the main path's shapes and at edge cases (equal counts
-               required), timed on the device with ``torch.profiler`` and
-               per call with CUDA events;
-  5. cpu     — the same ``run`` on reduced glm4-9b on the card and on the
-               CPU: equal reports; and the model's logits on the card
-               against the CPU on the same weights;
-  6. profile — one more step of the main path under ``torch.profiler``,
-               with host spans around the instrumenter's layers: where the
-               host and device time go and the device's idle share (a
-               traced run, so its wall time includes the tracing).
+  1. build    — compile the four CUDA kernels from
+                ``src/repro_torch/kernels/csrc``, in parallel;
+  2. main     — the analysis path (``repro_torch.launch.analyze.run``) on
+                glm4-9b at full width and depth for 4 steps, on the card; the
+                fused kernel must launch once per TRACE_BUFFER event; then
+                the same forward uninstrumented, for the slowdown;
+  3. families — the same path on zamba2-7b (hybrid) and mamba2-2.7b (ssm) at
+                full width and depth, and dbrx-132b (moe) at full width with
+                its depth cut to 4 of 40 layers (one card's memory); then the
+                eager half of examples/quickstart.py (kernel_freq,
+                workingset, timeline) on zamba2-7b;
+  4. in-kernel — the fine-grained tier: ``matmul_traced`` on glm4-9b's
+                layer-0 projections (bf16) against a 128-token activation,
+                each trace handed to a session as one TRACE_BUFFER, as
+                tests/test_instrumented_kernel.py does; traces equal to the
+                plain version's, products within the float32 bound of the
+                float64 product; timed against the plain version and
+                ``torch.matmul``;
+  5. fallback — a fine session without a hotness map (launches the object
+                histogram kernel) and one whose hotness map is too large to
+                fuse (launches the object and hotness kernels), each held
+                against the same session on the CPU;
+  6. kernels  — each trace kernel against its plain PyTorch version on the
+                card, at the main path's shapes and at edge cases (equal
+                counts required), timed on the device with
+                ``torch.profiler`` and per call with CUDA events;
+  7. cpu      — the same ``run`` on reduced glm4-9b, zamba2-7b, mamba2-2.7b
+                and dbrx-132b on the card and on the CPU: equal reports; and
+                each model's logits on the card against the CPU on the same
+                weights;
+  8. profile  — one more step of glm4-9b and of zamba2-7b under
+                ``torch.profiler``, with host spans around the
+                instrumenter's layers: where the host and device time go and
+                the device's idle share (a traced run, so its wall time
+                includes the tracing).
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line.  Launch counts are reset just before each path runs and read
-just after; the comparisons of phase 4 run outside those windows.
+just after; the comparisons of phases 4 and 6 run outside those windows.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -43,8 +60,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 STEPS = 4
 SEED = 0
+DBRX_LAYERS = 4                 # of 40: 57 GB of float32 weights at width
 
 
 def fail(msg: str) -> None:
@@ -64,6 +83,7 @@ from repro_torch.core.pool import MemoryPool               # noqa: E402
 from repro_torch.core.processor import EventProcessor      # noqa: E402
 from repro_torch.core.tools import LocatorTool             # noqa: E402
 from repro_torch.kernels import build, ops, ref            # noqa: E402
+from repro_torch.kernels import instrumented_matmul as im  # noqa: E402
 from repro_torch.launch import analyze                     # noqa: E402
 from repro_torch.models import forward                     # noqa: E402
 
@@ -101,6 +121,30 @@ def device_ms(fn, iters: int = 50):
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     return us / iters / 1e3 if us > 0 else None
+
+
+def timed(kern, plain, lib, iters: int = 50) -> dict:
+    """Device and per-call times of a kernel's wrapper, its plain version
+    and its library yardstick (None when there is none), in the order
+    plain, kernel, kernel, plain; device times fall back to CUDA events
+    when the profiler records no device activity."""
+    calls = [cuda_ms(f, iters) for f in (plain, kern, kern, plain)]
+    dev = [device_ms(f, iters) for f in (plain, kern, kern, plain)]
+    lib_call = cuda_ms(lib, iters) if lib is not None else None
+    lib_dev = device_ms(lib, iters) if lib is not None else None
+    timing = "profiler"
+    if None in dev or (lib is not None and lib_dev is None):
+        timing, dev, lib_dev = "cuda_events", calls, lib_call
+    return {"ms": min(dev[1], dev[2]), "plain_ms": min(dev[0], dev[3]),
+            "library_ms": lib_dev, "timing": timing,
+            "call_ms": min(calls[1], calls[2]),
+            "plain_call_ms": min(calls[0], calls[3]),
+            "library_call_ms": lib_call}
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 class TraceShapes:
@@ -141,13 +185,19 @@ def phase_build() -> None:
     print(f"build: {len(built)} kernels compiled by nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s ({', '.join(built) or 'cached'})",
           flush=True)
+    if len(ops.launches) != 4:
+        fail(f"build: expected four kernels, have {list(ops.launches)}")
 
 
-# ------------------------------------------------------------------ phase 2
-def phase_main():
-    cfg = configs.get("glm4-9b")
+# ---------------------------------------------------------------- phases 2-3
+def drive(cfg, label: str):
+    """The analysis path on ``cfg`` at full width for STEPS steps, its
+    checks, and the same forward uninstrumented.  Returns (facts, params,
+    tokens); the caller frees the weights."""
     hot = analyze.hotness_config(cfg, STEPS)
     shapes = TraceShapes()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -155,36 +205,41 @@ def phase_main():
                                             seed=SEED, observe=shapes)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    wall, steps_s = t1 - t0, t1 - shapes.t_steps
     launched = dict(ops.launches)
+    wall, steps_s = t1 - t0, t1 - shapes.t_steps
     w, h = reports["workingset"], reports["hotness"]
-    print(f"main: glm4-9b full width, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}, {STEPS} steps in "
-          f"{wall:.2f} s ({steps_s:.2f} s after making the weights); "
-          f"{shapes.events} trace buffers, analysis_s "
+    print(f"{label}: {cfg.name} full width, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.n_params / 1e9:.2f} B "
+          f"params, {STEPS} steps in {wall:.2f} s ({steps_s:.2f} s after "
+          f"making the weights); {shapes.events} trace buffers, analysis_s "
           f"{shapes.analysis_s:.3f}; launches {launched}; hotness "
           f"{hot['n_tbins']}x{hot['n_blocks']} blocks of "
           f"{(512 << hot['block_shift']) >> 20} MiB", flush=True)
-    print(f"main report: working set max={w['working_set_mb']:.2f}MB "
+    print(f"{label} report: working set max={w['working_set_mb']:.2f}MB "
           f"median={w['median_ws_mb']:.2f}MB footprint="
           f"{w['footprint_mb']:.1f}MB; hotness persistent="
           f"{len(h['persistent_blocks'])} bursty={len(h['bursty_blocks'])} "
           f"cold={h['cold_blocks']} accesses={h['total_accesses']}; "
+          f"locator {reports['locator'].get('kernel')}; "
           f"{len(schedule)} scheduled operators", flush=True)
     if launched["trace_aggregate"] != shapes.events or shapes.events == 0:
-        fail(f"main: fused kernel launched {launched['trace_aggregate']} "
+        fail(f"{label}: fused kernel launched {launched['trace_aggregate']} "
              f"times for {shapes.events} trace buffers")
-    if launched["object_histogram"] or launched["hotness_histogram"]:
-        fail(f"main: unfused kernels launched on the fused path {launched}")
+    if launched["object_histogram"] or launched["hotness_histogram"] \
+            or launched["instrumented_matmul"]:
+        fail(f"{label}: other kernels launched on the fused path {launched}")
     if tuple(logits.shape) != (2, 64, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
-        fail(f"main: logits {tuple(logits.shape)} not finite or misshapen")
+        fail(f"{label}: logits {tuple(logits.shape)} not finite or "
+             "misshapen")
     if not 0 < h["total_accesses"] or w["working_set_mb"] <= 0:
-        fail("main: empty reports")
+        fail(f"{label}: empty reports")
     # the map covers the parameter bytes, so no record falls outside it
     if h["total_accesses"] != shapes.records:
-        fail(f"main: hotness map holds {h['total_accesses']} of "
+        fail(f"{label}: hotness map holds {h['total_accesses']} of "
              f"{shapes.records} records")
+    del logits, reports
+    free_card()
     # the same forward without instrumentation: the analysis overhead
     params, x = analyze.make_inputs(cfg, SEED, "cuda")
     plain = []
@@ -195,18 +250,196 @@ def phase_main():
             forward(params, x, cfg)
             torch.cuda.synchronize()
             plain.append(time.perf_counter() - t0)
-    del params
     plain_step = float(np.median(plain[1:]))         # first one warms up
     step = steps_s / STEPS
-    print(f"main overhead: instrumented step {step * 1e3:.1f} ms vs "
+    print(f"{label} overhead: instrumented step {step * 1e3:.1f} ms vs "
           f"uninstrumented forward {plain_step * 1e3:.2f} ms (median of "
           f"{STEPS}): {step / plain_step:.1f}x; analysis_s per trace buffer "
-          f"{shapes.analysis_s / shapes.events * 1e3:.3f} ms", flush=True)
-    return {"launches": launched["trace_aggregate"], "hot": hot,
-            "largest": shapes.largest}
+          f"{shapes.analysis_s / shapes.events * 1e3:.3f} ms; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+          flush=True)
+    facts = {"launches": launched["trace_aggregate"], "hot": hot,
+             "largest": shapes.largest}
+    return facts, params, x
 
 
-# ------------------------------------------------------------------ phase 3
+def phase_main():
+    """glm4-9b; returns the path's facts and layer 0's four projection
+    weights in bf16, with a 2 x 64-token activation for each width."""
+    cfg = configs.get("glm4-9b")
+    facts, params, x = drive(cfg, "main")
+    dt = torch.bfloat16
+    with torch.inference_mode():
+        lay = params["layers"]
+        wq = lay["attn"]["wq"][0].reshape(cfg.d_model, cfg.q_dim).to(dt)
+        w_gate = lay["mlp"]["w_gate"][0].to(dt)
+        w_up = lay["mlp"]["w_up"][0].to(dt)
+        w_down = lay["mlp"]["w_down"][0].to(dt)
+        lm_head = params["lm_head"].to(dt)
+        h = params["embed"][x].to(dt).reshape(-1, cfg.d_model)
+        f = (torch.nn.functional.silu(h @ w_gate) * (h @ w_up)).contiguous()
+    del params, x, w_up
+    free_card()
+    proj = [("wq", h, wq), ("w_gate", h, w_gate), ("w_down", f, w_down),
+            ("lm_head", h, lm_head)]
+    return facts, proj
+
+
+def quickstart(cfg, params, x) -> int:
+    """The eager half of examples/quickstart.py on the card; returns the
+    object-histogram launches, which must equal its trace buffers."""
+    buffers = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.inference_mode():
+        with pasta.Session(tools="kernel_freq,workingset,timeline",
+                           instrument=True, fine=True, buffered=True,
+                           torch_device="cuda",
+                           name="quickstart") as session:
+            session.handler.subscribe(buffers.append,
+                                      kinds=("trace_buffer",))
+            with pasta.region("forward"):
+                logits, _ = forward(params, x, cfg)
+    torch.cuda.synchronize()
+    launched = dict(ops.launches)
+    del logits
+    reports = session.reports()
+    tl, ws, kf = reports["timeline"], reports["workingset"], \
+        reports["kernel_freq"]
+    d = tl["devices"][0]
+    print(f"quickstart: {cfg.name} full width, one forward in a "
+          f"kernel_freq,workingset,timeline session: timeline peak "
+          f"{tl['peak_bytes'][d]} B, allocs {tl['alloc_events'][d]}, frees "
+          f"{tl['free_events'][d]}; workingset footprint="
+          f"{ws['footprint_mb']:.1f}MB ws={ws['working_set_mb']:.2f}MB "
+          f"median={ws['median_ws_mb']:.2f}MB; kernel_freq total "
+          f"{kf['total_invocations']}; {len(buffers)} trace buffers; "
+          f"launches {launched}", flush=True)
+    if launched["object_histogram"] != len(buffers) or not buffers \
+            or launched["trace_aggregate"] or launched["hotness_histogram"]:
+        fail(f"quickstart: launches {launched} for {len(buffers)} trace "
+             "buffers")
+    if tl["peak_bytes"][d] <= 0 or ws["working_set_mb"] <= 0:
+        fail("quickstart: empty reports")
+    return launched["object_histogram"]
+
+
+def phase_families() -> dict:
+    """zamba2-7b, mamba2-2.7b at full width and depth, dbrx-132b at full
+    width and DBRX_LAYERS layers; the quickstart session on zamba2-7b."""
+    out = {"launches": {}, "quickstart": 0}
+    runs = [(configs.get("zamba2-7b"), "hybrid"),
+            (configs.get("mamba2-2.7b"), "ssm"),
+            (dataclasses.replace(configs.get("dbrx-132b"),
+                                 n_layers=DBRX_LAYERS), "moe")]
+    for cfg, label in runs:
+        if cfg.name == "dbrx-132b":
+            print(f"moe: dbrx-132b depth cut to {cfg.n_layers} of 40 layers "
+                  f"({cfg.n_params * 4 / 1e9:.1f} GB of float32 weights)",
+                  flush=True)
+        facts, params, x = drive(cfg, label)
+        out["launches"][cfg.name] = facts["launches"]
+        if cfg.name == "zamba2-7b":
+            out["quickstart"] = quickstart(cfg, params, x)
+        del params, x
+        free_card()
+    return out
+
+
+# ------------------------------------------------------------------ phase 4
+def phase_in_kernel(proj) -> dict:
+    """The in-kernel tier's path, then its checks and times."""
+    seen = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    results = []
+    with pasta.Session(tools=(), torch_device="cuda",
+                       name="in-kernel") as session:
+        session.handler.subscribe(seen.append, kinds=("trace_buffer",))
+        for name, x, w in proj:
+            out, trace = im.matmul_traced(x, w)
+            tr = trace.cpu().numpy()
+            session.handler.trace_buffer(
+                tr, name=name, kernel="matmul_traced",
+                bytes_read=int(tr[:, 2].sum()),
+                bytes_written=int(tr[:, 3].sum()))
+            results.append((out, trace))
+    torch.cuda.synchronize()
+    launches = ops.launches["instrumented_matmul"]
+    print(f"in-kernel: {len(proj)} matmul_traced calls on glm4-9b layer-0 "
+          f"projections, {len(seen)} trace buffers, launches {launches}",
+          flush=True)
+    if launches != len(proj) or len(seen) != len(proj):
+        fail(f"in-kernel: {launches} launches and {len(seen)} trace "
+             f"buffers for {len(proj)} calls")
+
+    err_max, timings, sums = 0.0, set(), dict.fromkeys(
+        ["ms", "plain_ms", "library_ms", "call_ms", "plain_call_ms",
+         "library_call_ms", "bound_ms"], 0.0)
+    for (name, x, w), (out, trace), ev in zip(proj, results, seen):
+        m, k = x.shape
+        n = w.shape[1]
+        gi, gj = m // im.BM, n // im.BN
+        want_read = gi * gj * (im.BM * k * x.itemsize + k * im.BN * w.itemsize)
+        if ev.attrs["bytes_read"] != want_read:
+            fail(f"in-kernel {name}: bytes_read {ev.attrs['bytes_read']} != "
+                 f"{want_read}")
+        if not torch.equal(trace, im.matmul_traced_ref(x, w)[1]):
+            fail(f"in-kernel {name}: trace differs from the plain version's")
+        # float64 product on the card; the kernel's float32 FMA sum over K
+        # terms is within gamma_K * |x|@|w|, gamma_K = K*u / (1 - K*u)
+        exact = x.double() @ w.double()
+        err = (out.double() - exact).abs()
+        del exact
+        gamma = k * 2.0**-24 / (1 - k * 2.0**-24)
+        bound = gamma * (x.double().abs() @ w.double().abs())
+        within = bool((err <= bound).all())
+        worst = float((err / bound.clamp_min(1e-300)).max())
+        e = float(err.max())
+        del err, bound
+        err_max = max(err_max, e)
+        if not within or not bool(torch.isfinite(out).all()):
+            fail(f"in-kernel {name}: out off the float64 product by {e} "
+                 f"({worst:.3f} of the float32 bound)")
+        xf, wf = x.float(), w.float()
+        times = timed(lambda: im.matmul_traced(x, w),
+                      lambda: im.matmul_traced_ref(x, w),
+                      lambda: torch.matmul(xf, wf), iters=10)
+        del xf, wf
+        flops = 2 * m * n * k
+        nbytes = x.numel() * x.itemsize + w.numel() * w.itemsize \
+            + m * n * 4 + gi * gj * 16
+        bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        timings.add(times["timing"])
+        for key in sums:
+            sums[key] += bound_ms if key == "bound_ms" else times[key]
+        print(f"in-kernel {name} ({m}, {k}) @ ({k}, {n}) bf16: kernel_ms "
+              f"{times['ms']:.5f} bound_ms {bound_ms:.5f} (bytes) plain_ms "
+              f"{times['plain_ms']:.5f} library_ms {times['library_ms']:.5f}"
+              f" ({times['timing']}); per call kernel "
+              f"{times['call_ms']:.5f} plain {times['plain_call_ms']:.5f} "
+              f"library {times['library_call_ms']:.5f}; max abs err "
+              f"{e:.3e} vs float64, {worst:.4f} of the float32 bound; "
+              f"{flops / times['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+        free_card()
+    shapes = ", ".join(f"{nm} ({x.shape[0]}x{x.shape[1]}x{w.shape[1]})"
+                       for nm, x, w in proj)
+    return {"name": "instrumented_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/instrumented_matmul.cu",
+            "replaces": "src/repro/kernels/instrumented_matmul.py:29",
+            "launches": launches, "max_abs_err": err_max,
+            "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": sums["bound_ms"], "bound_by": "bytes",
+            "library_ms": sums["library_ms"], "timing": "/".join(timings),
+            "aggregate": "sum over the four products",
+            "call_ms": sums["call_ms"],
+            "plain_call_ms": sums["plain_call_ms"],
+            "library_call_ms": sums["library_call_ms"],
+            "path": "in-kernel tier (glm4-9b layer-0 projections)",
+            "shapes": shapes}
+
+
+# ------------------------------------------------------------------ phase 5
 def _fine_session(cfg, device, hotness):
     """A fine-grained session over reduced glm4-9b; returns its reports."""
     params, x = analyze.make_inputs(cfg, SEED, "cpu")
@@ -262,7 +495,7 @@ def phase_fallback() -> dict:
     return counts
 
 
-# ------------------------------------------------------------------ phase 4
+# ------------------------------------------------------------------ phase 6
 def _units(x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, dtype=np.int32)).cuda()
 
@@ -308,7 +541,7 @@ def _compare(name, got, want) -> int:
     return err
 
 
-def phase_kernels(main, fallback) -> list:
+def phase_kernels(main, fallback, families) -> list:
     rng = np.random.default_rng(SEED)
     hot = main["hot"]
     base = hot["base"] >> ops.UNIT_SHIFT
@@ -365,14 +598,16 @@ def phase_kernels(main, fallback) -> list:
     hot_bins = (tb[okb].long() * n_blocks + blk[okb])
     cells = n_tbins * n_blocks
     shapes = f"N={n_main} K={k} map {n_tbins}x{n_blocks}"
+    fused_paths = {"glm4-9b": main["launches"], **families["launches"]}
     rows = [
         ("object_histogram", "src/repro_torch/kernels/csrc/object_histogram.cu",
          "src/repro/kernels/trace_aggregate.py:35",
          lambda: ops.object_histogram_t(a, s, e),
          lambda: ref.object_histogram_ref(a, s, e),
          lambda: torch.bincount(obj_bins, minlength=k),
-         4 * n_main + 8 * k + 4 * k, fallback["object_histogram"],
-         "fallback (no hotness map, or can_fuse false)"),
+         4 * n_main + 8 * k + 4 * k,
+         {"fallback": fallback["object_histogram"],
+          "quickstart zamba2-7b": families["quickstart"]}),
         ("hotness_histogram",
          "src/repro_torch/kernels/csrc/hotness_histogram.cu",
          "src/repro/kernels/hotness.py:30",
@@ -381,76 +616,75 @@ def phase_kernels(main, fallback) -> list:
          lambda: ref.hotness_histogram_ref(a, tb, base, n_blocks, n_tbins,
                                            shift),
          lambda: torch.bincount(hot_bins, minlength=cells),
-         8 * n_main + 4 * cells, fallback["hotness_histogram"],
-         "fallback (can_fuse false)"),
+         8 * n_main + 4 * cells,
+         {"fallback (can_fuse false)": fallback["hotness_histogram"]}),
         ("trace_aggregate", "src/repro_torch/kernels/csrc/trace_aggregate.cu",
          "src/repro/kernels/trace_aggregate.py:73",
          lambda: ops.trace_aggregate_t(a, tb, s, e, base, n_blocks, n_tbins,
                                        shift),
          lambda: ref.trace_aggregate_ref(a, tb, s, e, base, n_blocks,
                                          n_tbins, shift),
-         None, 8 * n_main + 8 * k + 4 * k + 4 * cells, main["launches"],
-         "main (glm4-9b full width)"),
+         None, 8 * n_main + 8 * k + 4 * k + 4 * cells, fused_paths),
     ]
     out = []
-    for name, src, replaces, kern, plain, lib, nbytes, launches, path in rows:
+    for name, src, replaces, kern, plain, lib, nbytes, paths in rows:
         err = _compare(f"{name} at {shapes}", kern(), plain())
-        # plain, kernel, kernel, plain: compare within one call
-        calls = [cuda_ms(f) for f in (plain, kern, kern, plain)]
-        dev = [device_ms(f) for f in (plain, kern, kern, plain)]
-        lib_call = cuda_ms(lib) if lib is not None else None
-        lib_dev = device_ms(lib) if lib is not None else None
-        timing = "profiler"
-        if None in dev or (lib is not None and lib_dev is None):
-            # no CUPTI records on this machine: per-call event times
-            timing, dev, lib_dev = "cuda_events", calls, lib_call
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches,
-               "max_abs_err": err, "ms": min(dev[1], dev[2]),
-               "plain_ms": min(dev[0], dev[3]), "bound_ms": bound,
-               "bound_by": "bytes", "library_ms": lib_dev, "timing": timing,
-               "call_ms": min(calls[1], calls[2]),
-               "plain_call_ms": min(calls[0], calls[3]),
-               "library_call_ms": lib_call, "path": path, "shapes": shapes}
+               "replaces": replaces, "launches": sum(paths.values()),
+               "max_abs_err": err}
+        row.update(timed(kern, plain, lib))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row.update({"bound_ms": bound, "bound_by": "bytes",
+                    "launches_by_path": paths, "shapes": shapes})
         out.append(row)
         print(f"kernel {name} at {shapes}: device ms kernel={row['ms']:.5f} "
-              f"plain={row['plain_ms']:.5f} library={lib_dev} "
+              f"plain={row['plain_ms']:.5f} library={row['library_ms']} "
               f"bound={bound:.6f}; per call (events) kernel="
               f"{row['call_ms']:.5f} plain={row['plain_call_ms']:.5f} "
-              f"library={lib_call}; launches={launches} ({path})",
+              f"library={row['library_call_ms']}; launches {paths}",
               flush=True)
     return out
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 7
 def phase_cpu() -> None:
-    cfg = configs.reduced(configs.get("glm4-9b"))
-    ops.reset_launches()
-    card, _l, sched_card = analyze.run(cfg, STEPS, "cuda", seed=SEED)
-    cpu, _l, sched_cpu = analyze.run(cfg, STEPS, "cpu", seed=SEED)
-    same = card.data == cpu.data and \
-        [(k.name, k.tensors) for k in sched_card] == \
-        [(k.name, k.tensors) for k in sched_cpu]
-    # model numerics: the same weights on the card and on the CPU
-    params, x = analyze.make_inputs(cfg, SEED, "cpu")
-    with torch.inference_mode():
-        want = forward(params, x, cfg)[0]
-        got = forward(_to(params, "cuda"), x.cuda(), cfg)[0].cpu()
-    # float32 throughout (TF32 off); sums are ordered differently
-    err = float((got - want).abs().max())
-    close = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
-    print(f"cpu: reduced glm4-9b reports card == cpu: {same} (fused "
-          f"launches {ops.launches['trace_aggregate']}); logits max abs "
-          f"diff card vs cpu {err:.3e} (rtol=atol=1e-4: {close})",
-          flush=True)
-    if not same:
-        fail(f"cpu: reports differ: card {card.data} cpu {cpu.data}")
-    if not close:
-        fail(f"cpu: logits differ by {err}")
+    for arch in ("glm4-9b", "zamba2-7b", "mamba2-2.7b", "dbrx-132b"):
+        cfg = configs.reduced(configs.get(arch))
+        buffers = []
+        ops.reset_launches()
+        card, _l, sched_card = analyze.run(
+            cfg, STEPS, "cuda", seed=SEED,
+            observe=lambda s: s.handler.subscribe(buffers.append,
+                                                  kinds=("trace_buffer",)))
+        torch.cuda.synchronize()
+        fused = ops.launches["trace_aggregate"]
+        cpu, _l, sched_cpu = analyze.run(cfg, STEPS, "cpu", seed=SEED)
+        same = card.data == cpu.data and \
+            [(k.name, k.tensors) for k in sched_card] == \
+            [(k.name, k.tensors) for k in sched_cpu]
+        # model numerics: the same weights on the card and on the CPU
+        params, x = analyze.make_inputs(cfg, SEED, "cpu")
+        with torch.inference_mode():
+            want = forward(params, x, cfg)[0]
+            got = forward(_to(params, "cuda"), x.cuda(), cfg)[0].cpu()
+        # float32 throughout (TF32 off); sums are ordered differently
+        err = float((got - want).abs().max())
+        close = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+        print(f"cpu: reduced {arch} reports card == cpu: {same} (fused "
+              f"launches {fused} for {len(buffers)} trace buffers); logits "
+              f"max abs diff card vs cpu {err:.3e} (rtol=atol=1e-4: "
+              f"{close})", flush=True)
+        if not same:
+            fail(f"cpu {arch}: reports differ: card {card.data} cpu "
+                 f"{cpu.data}")
+        if fused != len(buffers):
+            fail(f"cpu {arch}: {fused} fused launches for {len(buffers)} "
+                 "trace buffers")
+        if not close:
+            fail(f"cpu {arch}: logits differ by {err}")
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 8
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
@@ -478,13 +712,13 @@ class HostSpans:
         self._orig = []
 
     def _wrap(self, name, fn):
-        def timed(*args, **kw):
+        def timed_fn(*args, **kw):
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kw)
             finally:
                 self.totals[name] += time.perf_counter() - t0
-        return timed
+        return timed_fn
 
     def __enter__(self):
         for name, cls, attr in self.LAYERS:
@@ -498,9 +732,9 @@ class HostSpans:
             setattr(cls, attr, fn)
 
 
-def phase_profile(hot) -> None:
+def phase_profile(cfg) -> None:
     from torch.profiler import ProfilerActivity, profile
-    cfg = configs.get("glm4-9b")
+    hot = analyze.hotness_config(cfg, STEPS)
     shapes = TraceShapes()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     t = []
@@ -509,11 +743,13 @@ def phase_profile(hot) -> None:
         shapes(session)
         prof.start()
         t.append(time.perf_counter())
+    free_card()
     with HostSpans() as spans:
         analyze.run(cfg, 1, "cuda", hot, seed=SEED, observe=observe)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t[0]) * 1e6
         prof.stop()
+    free_card()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     groups = {"trace kernels": ("histogram_kernel", "trace_aggregate_kernel"),
@@ -528,7 +764,7 @@ def phase_profile(hot) -> None:
     parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in sums.items())
     host = ", ".join(f"{k} {v * 1e3:.1f} ms"
                      for k, v in spans.totals.items())
-    print(f"profile: one glm4-9b full-width step (traced), wall "
+    print(f"profile: one {cfg.name} full-width step (traced), wall "
           f"{wall_us / 1e3:.1f} ms, {shapes.events} trace buffers; host "
           f"spans: {host}, analysis_s {shapes.analysis_s * 1e3:.1f} ms; "
           f"device busy {busy / 1e3:.2f} ms, idle share "
@@ -540,12 +776,22 @@ def phase_profile(hot) -> None:
 
 
 def main() -> None:
+    # float32 stays float32 on the card (cuDNN would default to TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     phase_build()
-    main_run = phase_main()
+    main_run, proj = phase_main()
+    families = phase_families()
+    in_kernel = phase_in_kernel(proj)
+    del proj
+    free_card()
     fallback = phase_fallback()
-    kernels = phase_kernels(main_run, fallback)
+    kernels = phase_kernels(main_run, fallback, families) + [in_kernel]
     phase_cpu()
-    phase_profile(main_run["hot"])
+    phase_profile(configs.get("glm4-9b"))
+    phase_profile(configs.get("zamba2-7b"))
+    print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

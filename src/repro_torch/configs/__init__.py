@@ -9,7 +9,10 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _ARCHS = {
+    "mamba2-2.7b": "mamba2_2_7b",
     "glm4-9b": "glm4_9b",
+    "zamba2-7b": "zamba2_7b",
+    "dbrx-132b": "dbrx_132b",
     "paper-gpt2": "paper_gpt2",
     "paper-bert": "paper_bert",
 }

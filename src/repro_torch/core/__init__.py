@@ -21,7 +21,8 @@ from .processor import (EventProcessor, analyze_access_trace,
 from .session import (Session, Report, Reports, active_session,
                       current_session, current_handler, root_session)
 from . import tools
-from .tools import (PastaTool, WorkingSetTool, HotnessTool, LocatorTool,
+from .tools import (PastaTool, KernelFrequencyTool, WorkingSetTool,
+                    HotnessTool, MemoryTimelineTool, LocatorTool,
                     TOOL_REGISTRY, register, parse_tool_spec, resolve_tools)
 from .tools import offload
 
@@ -33,6 +34,7 @@ __all__ = [
     "EventHandler", "MemoryPool", "MemoryObject", "TensorHandle",
     "CHUNK_ALIGN", "EventProcessor", "analyze_access_trace",
     "analyze_hotness_trace", "analyze_trace_fused", "tools", "PastaTool",
-    "WorkingSetTool", "HotnessTool", "LocatorTool", "TOOL_REGISTRY",
+    "KernelFrequencyTool", "WorkingSetTool", "HotnessTool",
+    "MemoryTimelineTool", "LocatorTool", "TOOL_REGISTRY",
     "register", "parse_tool_spec", "resolve_tools", "offload",
 ]

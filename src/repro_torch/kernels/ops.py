@@ -34,7 +34,7 @@ RECORDS_PER_THREAD = 8         # grid sizing: records each thread takes
 
 #: kernel name -> number of launches (the CPU path never counts)
 launches = {"object_histogram": 0, "hotness_histogram": 0,
-            "trace_aggregate": 0}
+            "trace_aggregate": 0, "instrumented_matmul": 0}
 
 
 def reset_launches() -> None:

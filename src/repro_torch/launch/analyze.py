@@ -12,6 +12,10 @@ hand-written CUDA kernels (the fused counts+hotness kernel when it fits).
 
     PYTHONPATH=src python -m repro_torch.launch.analyze [--arch glm4-9b]
         [--steps 4] [--reduced] [--device cuda]
+
+``--arch`` is any architecture of :mod:`repro_torch.configs`: dense
+(glm4-9b, paper-gpt2, paper-bert), ssm (mamba2-2.7b), hybrid (zamba2-7b)
+or moe (dbrx-132b).
 """
 
 from __future__ import annotations
@@ -128,7 +132,8 @@ def run(cfg: ModelConfig, steps: int = 4, device="cuda",
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="glm4-9b")
+    ap.add_argument("--arch", default="glm4-9b",
+                    choices=configs.list_archs())
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--reduced", action="store_true",
                     help="the reference example's tiny variant")

@@ -1,5 +1,5 @@
-"""Transformer layers of the dense path: RMSNorm, RoPE, GQA attention, GLU
-MLPs, as plain functions on tensors and dicts of parameters.
+"""Transformer layers: RMSNorm, RoPE, GQA attention, GLU MLPs, as plain
+functions on tensors and dicts of parameters.
 
 Numerics follow the JAX reference: matmuls in the config compute dtype
 (bf16 at full width) with each weight cast to it, softmax/norm statistics
@@ -64,14 +64,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ----------------------------------------------------------------- attention
-def init_attention(cfg: ModelConfig, n: int, gen: torch.Generator, dtype,
-                   device) -> dict:
-    """Stacked attention weights for ``n`` layers (leading layer axis)."""
-    d, hd = cfg.d_model, cfg.head_dim
-
+def normal_init(lead: tuple, gen: torch.Generator, dtype, device):
+    """``normal(shape, scale)``: N(0, scale²) weights of shape
+    ``(*lead, *shape)``."""
     def normal(shape, scale):
-        return torch.randn((n, *shape), generator=gen, dtype=dtype,
+        return torch.randn((*lead, *shape), generator=gen, dtype=dtype,
                            device=device).mul_(scale)
+    return normal
+
+
+def init_attention(cfg: ModelConfig, lead: tuple, gen: torch.Generator,
+                   dtype, device) -> dict:
+    """Attention weights with leading axes ``lead`` (``(n_layers,)`` for a
+    stack, ``()`` for one block)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    normal = normal_init(lead, gen, dtype, device)
     s = 1.0 / math.sqrt(d)
     return {
         "wq": normal((d, cfg.n_heads, hd), s),
@@ -140,14 +147,11 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ----------------------------------------------------------------------- mlp
-def init_mlp(cfg: ModelConfig, n: int, gen: torch.Generator, dtype,
+def init_mlp(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
              device) -> dict:
-    """Stacked GLU MLP weights for ``n`` layers (leading layer axis)."""
+    """GLU MLP weights with leading axes ``lead``."""
     d, f = cfg.d_model, cfg.d_ff
-
-    def normal(shape, scale):
-        return torch.randn((n, *shape), generator=gen, dtype=dtype,
-                           device=device).mul_(scale)
+    normal = normal_init(lead, gen, dtype, device)
     return {
         "w_gate": normal((d, f), 1.0 / math.sqrt(d)),
         "w_up": normal((d, f), 1.0 / math.sqrt(d)),

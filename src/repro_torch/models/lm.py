@@ -1,12 +1,22 @@
-"""Decoder LM of the dense family (GQA attention + GLU MLP blocks), without
-a KV cache.
+"""Decoder LM of the dense, moe, ssm and hybrid families, without a KV
+cache.
+
+  * dense  — GQA attention + GLU MLP blocks;
+  * moe    — attention + sort-based capacity MoE blocks;
+  * ssm    — Mamba2 (SSD) blocks, attention-free;
+  * hybrid — Mamba2 backbone with ONE weight-shared transformer block applied
+    after every ``shared_attn_every`` SSM layers (Zamba2); the SSM layers
+    are stacked in (group, layer-in-group) shape, remaining layers in a
+    ``tail``.
 
 Parameters are a plain nested dict with the reference's layout: per-layer
-weights are stacked along a leading layer axis under ``params["layers"]``
-and sliced per layer at run time (``_tree_at``), so each layer of each step
-sees fresh views — the counterpart of the fresh JAX slices, which is what
-makes the instrumented event stream match the reference.  A persistent
-per-layer module list would register each weight once and never free it.
+weights are stacked along leading layer axes (``layers``, ``groups``,
+``tail``) and sliced per layer at run time (``_tree_at``), so each layer of
+each step sees fresh views — the counterpart of the fresh JAX slices, which
+is what makes the instrumented event stream match the reference.  A
+persistent per-layer module list would register each weight once and never
+free it.  The hybrid's ``shared`` block is not stacked and is handed to
+every group as the same tensors, registered once, as the reference does.
 Run the instrumented forward under ``torch.inference_mode()``: an autograd
 graph would keep inputs alive and change the stream.
 """
@@ -20,15 +30,19 @@ import torch
 from repro_torch.core.instrument import op_hook
 from .config import ModelConfig
 from . import layers as L
+from . import mamba2 as M
+from . import moe as MOE
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations outside the ported dense path."""
-    if cfg.family != "dense" or cfg.frontend != "none" or cfg.m_rope \
+    """Raise for configurations outside the ported families."""
+    if cfg.family not in FAMILIES or cfg.frontend != "none" or cfg.m_rope \
             or cfg.qk_norm:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with token inputs, plain "
-            "RoPE and no qk-norm is ported")
+            f"{cfg.name}: only the {', '.join(FAMILIES)} families with token "
+            "inputs, plain RoPE and no qk-norm are ported")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
@@ -44,12 +58,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         p["lm_head"] = torch.randn((d, v), generator=gen, dtype=dt,
                                    device=device).mul_(1.0 / math.sqrt(d))
     p["final_norm"] = torch.zeros((d,), dtype=dt, device=device)
-    p["layers"] = {
-        "attn": L.init_attention(cfg, n, gen, dt, device),
-        "ln1": torch.zeros((n, d), dtype=dt, device=device),
-        "ln2": torch.zeros((n, d), dtype=dt, device=device),
-        "mlp": L.init_mlp(cfg, n, gen, dt, device),
-    }
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def mamba_stack(lead):
+        return {"ln": zeros(*lead, d),
+                "mamba": M.init_mamba2(cfg, lead, gen, dt, device)}
+
+    if cfg.family in ("dense", "moe"):
+        p["layers"] = {"attn": L.init_attention(cfg, (n,), gen, dt, device),
+                       "ln1": zeros(n, d), "ln2": zeros(n, d)}
+        if cfg.family == "moe":
+            p["layers"]["moe"] = MOE.init_moe(cfg, (n,), gen, dt, device)
+        else:
+            p["layers"]["mlp"] = L.init_mlp(cfg, (n,), gen, dt, device)
+    elif cfg.family == "ssm":
+        p["layers"] = mamba_stack((n,))
+    else:
+        every = cfg.shared_attn_every
+        n_groups = n // every
+        tail = n - n_groups * every
+        p["groups"] = mamba_stack((n_groups, every))
+        if tail:
+            p["tail"] = mamba_stack((tail,))
+        p["shared"] = {"ln1": zeros(d), "ln2": zeros(d),
+                       "attn": L.init_attention(cfg, (), gen, dt, device),
+                       "mlp": L.init_mlp(cfg, (), gen, dt, device)}
     return p
 
 
@@ -60,14 +95,33 @@ def _tree_at(tree: dict, i: int) -> dict:
             else tree[k][i] for k in sorted(tree)}
 
 
+def _n_stacked(tree: dict, axis: int = 0) -> int:
+    """Length of the stacked tree's leading ``axis``."""
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = leaf[next(iter(leaf))]
+    return leaf.shape[axis]
+
+
 def _attn_block(blk, h, cfg, positions):
     a, new_cache = L.attention(blk["attn"], L.rmsnorm(h, blk["ln1"],
                                                       cfg.rmsnorm_eps),
                                cfg, positions)
     h = h + a
-    y = L.mlp(blk["mlp"], L.rmsnorm(h, blk["ln2"], cfg.rmsnorm_eps), cfg)
-    aux = {}
+    if "moe" in blk:
+        y, aux = MOE.moe_layer(blk["moe"], L.rmsnorm(h, blk["ln2"],
+                                                     cfg.rmsnorm_eps), cfg)
+    else:
+        y = L.mlp(blk["mlp"], L.rmsnorm(h, blk["ln2"], cfg.rmsnorm_eps), cfg)
+        aux = {}
     return h + y, new_cache, aux
+
+
+def _mamba_block(blk, h, cfg):
+    y, new_state = M.mamba2_layer(blk["mamba"],
+                                  L.rmsnorm(h, blk["ln"], cfg.rmsnorm_eps),
+                                  cfg)
+    return h + y, new_state
 
 
 def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig):
@@ -79,7 +133,12 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig):
     op_hook("embed.lookup", (inputs, params["embed"]), (h,))
     b, s = h.shape[0], h.shape[1]
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
-    h, new_cache = _run_stacked_attn(params, h, cfg, positions)
+    if cfg.family in ("dense", "moe"):
+        h, new_cache = _run_stacked_attn(params, h, cfg, positions)
+    elif cfg.family == "ssm":
+        h, new_cache = _run_stacked_ssm(params, h, cfg)
+    else:
+        h, new_cache = _run_hybrid(params, h, cfg, positions)
     h = L.rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", h, params["embed"].to(dt))
@@ -91,8 +150,35 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig):
 
 def _run_stacked_attn(params, h, cfg, positions):
     layers = params["layers"]
-    n = layers["ln1"].shape[0]
+    n = _n_stacked(layers)
     for i in range(n):
         op_hook(f"layer{i}", (h,), ())
         h, _kv, _aux = _attn_block(_tree_at(layers, i), h, cfg, positions)
+    return h, None
+
+
+def _run_stacked_ssm(params, h, cfg):
+    layers = params["layers"]
+    n = _n_stacked(layers)
+    for i in range(n):
+        op_hook(f"layer{i}", (h,), ())
+        h, _st = _mamba_block(_tree_at(layers, i), h, cfg)
+    return h, None
+
+
+def _run_hybrid(params, h, cfg, positions):
+    shared = params["shared"]
+    groups = params["groups"]
+    n_g = _n_stacked(groups)
+    every = _n_stacked(groups, 1)
+    for gi in range(n_g):
+        for li in range(every):
+            op_hook(f"group{gi}.layer{li}", (h,), ())
+            h, _ = _mamba_block(_tree_at(_tree_at(groups, gi), li), h, cfg)
+        op_hook(f"group{gi}.shared_attn", (h,), ())
+        h, _kv, _aux = _attn_block(shared, h, cfg, positions)
+    if "tail" in params:
+        n_t = _n_stacked(params["tail"])
+        for ti in range(n_t):
+            h, _ = _mamba_block(_tree_at(params["tail"], ti), h, cfg)
     return h, None

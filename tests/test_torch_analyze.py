@@ -1,5 +1,6 @@
 """The whole slice: examples/analyze_workload.py on the JAX package against
-``repro_torch.launch.analyze.run(device="cpu")``, at reduced glm4-9b.
+``repro_torch.launch.analyze.run(device="cpu")``, at reduced glm4-9b
+(dense), zamba2-7b (hybrid), mamba2-2.7b (ssm) and dbrx-132b (moe).
 
 Both sides get the same weights and tokens (the port's, moved through
 numpy).  Their event streams must be identical in kind, name, size and
@@ -7,6 +8,8 @@ address (the wall-clock ``time`` column aside), their workingset /
 hotness / locator reports and offload plans equal, and their logits within
 rtol = atol = 1e-5 (float32 on both sides, sums in a different order).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,8 +102,10 @@ def _reference_analyze(cfg, params_t, x_t, stream):
     return reports, logits, plans
 
 
-def test_analyze_slice_matches_reference():
-    tcfg = TC.reduced(TC.get("glm4-9b"))
+@pytest.mark.parametrize("arch", ["glm4-9b", "zamba2-7b", "mamba2-2.7b",
+                                  "dbrx-132b"])
+def test_analyze_slice_matches_reference(arch):
+    tcfg = TC.reduced(TC.get(arch))
     port_stream, sessions = [], []
 
     def observe(session):
@@ -115,9 +120,9 @@ def test_analyze_slice_matches_reference():
     jevents.reset_seq()
     ref_stream = []
     want_reports, want_logits, want_plans = _reference_analyze(
-        RC.reduced(RC.get("glm4-9b")), params_t, x_t, ref_stream)
+        RC.reduced(RC.get(arch)), params_t, x_t, ref_stream)
 
-    assert len(port_stream) > 400
+    assert len(port_stream) > 200
     assert port_stream == ref_stream
     kinds = {k for k, *_ in port_stream}
     assert {"trace_buffer", "tensor_alloc", "tensor_free",
@@ -130,12 +135,20 @@ def test_analyze_slice_matches_reference():
                                atol=ATOL)
 
 
-def test_hotness_config_sizes_the_map():
-    reduced = TC.reduced(TC.get("glm4-9b"))
+@pytest.mark.parametrize("arch,n_layers", [("glm4-9b", None),
+                                           ("zamba2-7b", None),
+                                           ("mamba2-2.7b", None),
+                                           ("dbrx-132b", 4)])
+def test_hotness_config_sizes_the_map(arch, n_layers):
+    """The map covers the (cut) model's parameter bytes with the fewest
+    blocks of the smallest size that fits in 4096 blocks."""
+    reduced = TC.reduced(TC.get(arch))
     assert analyze.hotness_config(reduced, 4) == {
         "base": CHUNK_ALIGN, "n_blocks": 256, "n_tbins": 4, "t_max": 4.0,
         "block_shift": 5}
-    full = TC.get("glm4-9b")
+    full = TC.get(arch)
+    if n_layers is not None:
+        full = dataclasses.replace(full, n_layers=n_layers)
     hot = analyze.hotness_config(full, 4)
     covered = hot["n_blocks"] * (512 << hot["block_shift"])
     assert hot["n_blocks"] <= analyze.MAX_BLOCKS

@@ -1,11 +1,14 @@
 """Card-only tests of the port (marker ``cuda``): each CUDA kernel against
-its plain version, and the analysis path on the card against the CPU.
+its plain version, and the analysis path of each model family on the card
+against the CPU.
 
 They import neither ``jax`` nor the JAX package, so they run where only
-PyTorch is installed, and skip where ``torch.cuda.is_available()`` is
-false.  On a machine with the card::
+PyTorch is installed (``--noconftest`` skips ``tests/conftest.py``, which
+imports the JAX package; the fixtures they need are defined here), and
+skip where ``torch.cuda.is_available()`` is false.  On a machine with the
+card::
 
-    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 import repro_torch.configs as configs
 from repro_torch.core import events as tevents
 from repro_torch.core import session as tsession
+from repro_torch.kernels import instrumented_matmul as im
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import analyze
 
@@ -27,6 +31,11 @@ def _port_state():
     tsession.reset_state()
     yield
     tsession.reset_state()
+
+
+@pytest.fixture()
+def rng():
+    return np.random.default_rng(0)
 
 
 @pytest.fixture()
@@ -73,13 +82,45 @@ def test_kernels_equal_plain_versions(rng, card, k, nb, ntb):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     torch.cuda.synchronize()
     assert ops.launches == {"object_histogram": 1, "hotness_histogram": 1,
-                            "trace_aggregate": int(fused)}
+                            "trace_aggregate": int(fused),
+                            "instrumented_matmul": 0}
 
 
-def test_analyze_on_the_card_equals_the_cpu(card):
-    """Reduced glm4-9b: the card's reports equal the CPU's, every trace
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(128, 1, 128), (128, 4096, 512),
+                                   (256, 1000, 384), (384, 13696, 128)])
+def test_matmul_traced_equals_plain_version(rng, card, m, k, n, dtype):
+    """The trace exactly; out against the float64 product within the
+    worst-case bound of a float32 FMA sum over K terms, gamma_K * |x|@|w|
+    with gamma_K = K*u / (1 - K*u), u = 2**-24 (the kernel sums in another
+    order than any reference, so an error growing with K is expected)."""
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    x, w = x.to(card, dtype), w.to(card, dtype)
+    ops.reset_launches()
+    out, trace = im.matmul_traced(x, w)
+    torch.cuda.synchronize()
+    assert ops.launches["instrumented_matmul"] == 1
+    _, want_trace = im.matmul_traced_ref(x, w)
+    assert torch.equal(trace, want_trace)
+    exact = x.double() @ w.double()
+    gamma = k * 2.0**-24 / (1 - k * 2.0**-24)
+    bound = gamma * (x.double().abs() @ w.double().abs())
+    assert bool(((out.double() - exact).abs() <= bound).all())
+
+
+def test_matmul_traced_rejects_non_contiguous(card):
+    x = torch.ones((128, 256), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.matmul_traced(x, torch.ones((128, 256), device=card).t())
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "zamba2-7b", "mamba2-2.7b",
+                                  "dbrx-132b"])
+def test_analyze_on_the_card_equals_the_cpu(card, arch):
+    """Reduced models: the card's reports equal the CPU's, every trace
     buffer went through the fused kernel."""
-    cfg = configs.reduced(configs.get("glm4-9b"))
+    cfg = configs.reduced(configs.get(arch))
     buffers = []
     ops.reset_launches()
     got, logits, _ = analyze.run(

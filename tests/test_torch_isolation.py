@@ -3,6 +3,7 @@ in neither ``jax`` nor the JAX package, and an entry point called without
 ``device=`` goes to the card, so on a machine without one it raises
 instead of running on the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -18,7 +19,7 @@ from repro_torch.kernels import ops
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -27,8 +28,16 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-print(len(names), bad)
+print(json.dumps([names, bad]))
 """
+
+#: modules of the port that must import with the rest
+PORTED = ("repro_torch.kernels.instrumented_matmul",
+          "repro_torch.core.tools.kernel_freq",
+          "repro_torch.core.tools.timeline", "repro_torch.models.mamba2",
+          "repro_torch.models.moe", "repro_torch.configs.zamba2_7b",
+          "repro_torch.configs.mamba2_2_7b", "repro_torch.configs.dbrx_132b",
+          "repro_torch.launch.analyze", "repro_torch.kernels.ops")
 
 
 @pytest.fixture(autouse=True)
@@ -44,9 +53,10 @@ def test_port_imports_neither_jax_nor_reference():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
                        capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr
-    n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 20
-    assert bad == "[]"
+    names, bad = json.loads(r.stdout)
+    assert len(names) >= 30
+    assert set(PORTED) <= set(names)
+    assert bad == []
 
 
 def test_default_device_is_the_card():

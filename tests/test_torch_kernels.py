@@ -18,7 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import events as tevents
 from repro_torch.core import session as tsession
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, instrumented_matmul, ops, ref
 
 BACKENDS = {"ref": "0", "interpret": "1"}
 
@@ -208,8 +208,10 @@ def test_cpu_path_never_counts_launches(rng):
     ops.object_histogram(starts, starts, ends, device="cpu")
     ops.trace_aggregate(starts, [0.0] * 3, starts, ends, 2 << 20, 8, 2, 1.0,
                         device="cpu")
+    instrumented_matmul.matmul_traced(torch.ones((128, 8)),
+                                      torch.ones((8, 128)))
     assert ops.launches == {"object_histogram": 0, "hotness_histogram": 0,
-                            "trace_aggregate": 0}
+                            "trace_aggregate": 0, "instrumented_matmul": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -1,4 +1,4 @@
-"""Port's host event pipeline against the JAX package's.
+"""Port's host event pipeline and tools against the JAX package's.
 
 The golden event streams of tests/test_batch.py and tests/test_session.py
 are replayed through both packages (``repro.core`` and
@@ -39,7 +39,8 @@ def _kw(pasta):
 
 
 def _tools(pasta):
-    return [pasta.WorkingSetTool(), pasta.HotnessTool(n_tbins=4, n_blocks=64),
+    return [pasta.KernelFrequencyTool(), pasta.MemoryTimelineTool(),
+            pasta.WorkingSetTool(), pasta.HotnessTool(n_tbins=4, n_blocks=64),
             pasta.LocatorTool(capture_python_stack=False)]
 
 
@@ -101,11 +102,17 @@ def _golden_batch_workload(pasta, events_mod, batched=False, capacity=None):
     (False, None), (True, None), (False, 1), (False, 3), (False, 7),
     (False, 64), (False, 4096), (True, 5)])
 def test_golden_batch_stream_reports_equal(batched, capacity):
+    """Equal to the reference under the same emission, and to the port's
+    own scalar, unbuffered emission (kernel_freq and timeline promise
+    identical reports under scalar and batched emission)."""
     want = _golden_batch_workload(jpasta, jevents, batched, capacity)
     got = _golden_batch_workload(tpasta, tevents, batched, capacity)
     assert got == want
-    assert got["WorkingSetTool"]["kernel_count"] == \
-        sum(c for _n, c, _l in KERNELS) * 3
+    assert got == _golden_batch_workload(tpasta, tevents)
+    n_kernels = sum(c for _n, c, _l in KERNELS) * 3
+    assert got["WorkingSetTool"]["kernel_count"] == n_kernels
+    assert got["KernelFrequencyTool"]["total_invocations"] == n_kernels
+    assert got["MemoryTimelineTool"]["alloc_events"] == {"()": 6}
     assert got["HotnessTool"]["total_accesses"] == 400
 
 

@@ -19,18 +19,24 @@ non-zero and print no result):
   4. in-kernel — the fine-grained tier: ``matmul_traced`` on glm4-9b's
                 layer-0 projections (bf16) against a 128-token activation,
                 each trace handed to a session as one TRACE_BUFFER, as
-                tests/test_instrumented_kernel.py does; traces equal to the
-                plain version's, products within the float32 bound of the
-                float64 product; timed against the plain version and
-                ``torch.matmul``;
+                tests/test_instrumented_kernel.py does; all four on the
+                wgmma body; traces equal to the plain version's, products
+                within the float32 bound of the float64 product and
+                bitwise equal across two calls; timed with a cold L2 (a
+                256 MiB write between calls) and warm, against the plain
+                version, ``torch.mm(out_dtype=float32)`` on the bf16
+                operands and ``torch.matmul`` in float32;
   5. fallback — a fine session without a hotness map (launches the object
                 histogram kernel) and one whose hotness map is too large to
                 fuse (launches the object and hotness kernels), each held
                 against the same session on the CPU;
   6. kernels  — each trace kernel against its plain PyTorch version on the
                 card, at the main path's shapes and at edge cases (equal
-                counts required), timed on the device with
-                ``torch.profiler`` and per call with CUDA events;
+                counts required; for the fused kernel also the worst
+                contention, 2**24 - 1 records over several clusters, and
+                out-of-range bins and blocks); one fused call at the largest
+                buffer must be one device operation; timed on the device
+                with ``torch.profiler`` and per call with CUDA events;
   7. cpu      — the same ``run`` on reduced glm4-9b, zamba2-7b, mamba2-2.7b
                 and dbrx-132b on the card and on the CPU: equal reports; and
                 each model's logits on the card against the CPU on the same
@@ -347,6 +353,43 @@ def phase_families() -> dict:
 
 
 # ------------------------------------------------------------------ phase 4
+FLUSH_BYTES = 256 << 20         # written between calls: five times the L2
+FLUSH_KERNEL = "bitwise_not"    # in the name of the flush's kernel
+
+
+def cold_ms(fn, flush, iters: int = 10):
+    """Device time per call of ``fn()`` with a cold L2: before each call
+    ``flush()`` rewrites FLUSH_BYTES with a ``bitwise_not`` kernel.  Only
+    ``fn``'s own device records count: the flush's are known by their
+    kernel's name, and records that start before the first flush (late
+    ones from calls outside the window) are left out.  None when the
+    profiler did not record every flush or recorded nothing of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    flushes = [e for e in dev if FLUSH_KERNEL in e.name]
+    if len(flushes) != iters:
+        return None
+    t0 = min(e.time_range.start for e in flushes)
+    us = sum(e.time_range.elapsed_us() for e in dev
+             if FLUSH_KERNEL not in e.name and e.time_range.start >= t0)
+    return us / iters / 1e3 if us > 0 else None
+
+
+def mm_bf16(x, w):
+    """The library call computing the kernel's function: bf16 operands,
+    float32 accumulation and result (``aten::mm.dtype``)."""
+    return torch.mm(x, w, out_dtype=torch.float32)
+
+
 def phase_in_kernel(proj) -> dict:
     """The in-kernel tier's path, then its checks and times."""
     seen = []
@@ -366,16 +409,33 @@ def phase_in_kernel(proj) -> dict:
             results.append((out, trace))
     torch.cuda.synchronize()
     launches = ops.launches["instrumented_matmul"]
+    bodies = dict(im.bodies)
+    plans = {name: im._plan(x.shape[0], x.shape[1], w.shape[1], x.dtype,
+                            im._resident(x.device))
+             for name, x, w in proj}
     print(f"in-kernel: {len(proj)} matmul_traced calls on glm4-9b layer-0 "
-          f"projections, {len(seen)} trace buffers, launches {launches}",
+          f"projections, {len(seen)} trace buffers, launches {launches}, "
+          f"bodies {bodies}, plans (body, split) {plans}; clusters the card "
+          f"holds at once by split {im._resident(proj[0][1].device)}",
           flush=True)
     if launches != len(proj) or len(seen) != len(proj):
         fail(f"in-kernel: {launches} launches and {len(seen)} trace "
              f"buffers for {len(proj)} calls")
+    if bodies != {"wgmma": len(proj), "simt": 0}:
+        fail(f"in-kernel: bodies {bodies}; every bf16 product of the path "
+             "must run on the wgmma body")
 
-    err_max, timings, sums = 0.0, set(), dict.fromkeys(
-        ["ms", "plain_ms", "library_ms", "call_ms", "plain_call_ms",
-         "library_call_ms", "bound_ms"], 0.0)
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                            device="cuda")
+
+    def flush():
+        flush_buf.bitwise_not_()
+
+    err_max, timings, by_product = 0.0, set(), {}
+    keys = ["ms", "plain_ms", "library_ms", "library_f32_ms", "warm_ms",
+            "plain_warm_ms", "library_warm_ms", "library_f32_warm_ms",
+            "call_ms", "plain_call_ms", "library_call_ms", "bound_ms"]
+    sums = dict.fromkeys(keys, 0.0)
     for (name, x, w), (out, trace), ev in zip(proj, results, seen):
         m, k = x.shape
         n = w.shape[1]
@@ -386,6 +446,8 @@ def phase_in_kernel(proj) -> dict:
                  f"{want_read}")
         if not torch.equal(trace, im.matmul_traced_ref(x, w)[1]):
             fail(f"in-kernel {name}: trace differs from the plain version's")
+        if not torch.equal(out, im.matmul_traced(x, w)[0]):
+            fail(f"in-kernel {name}: two calls on the same operands differ")
         # float64 product on the card; the kernel's float32 FMA sum over K
         # terms is within gamma_K * |x|@|w|, gamma_K = K*u / (1 - K*u)
         exact = x.double() @ w.double()
@@ -402,39 +464,64 @@ def phase_in_kernel(proj) -> dict:
             fail(f"in-kernel {name}: out off the float64 product by {e} "
                  f"({worst:.3f} of the float32 bound)")
         xf, wf = x.float(), w.float()
-        times = timed(lambda: im.matmul_traced(x, w),
-                      lambda: im.matmul_traced_ref(x, w),
-                      lambda: torch.matmul(xf, wf), iters=10)
+        kern = lambda: im.matmul_traced(x, w)            # noqa: E731
+        plain = lambda: im.matmul_traced_ref(x, w)       # noqa: E731
+        lib = lambda: mm_bf16(x, w)                      # noqa: E731
+        lib32 = lambda: torch.matmul(xf, wf)             # noqa: E731
+        warm = timed(kern, plain, lib, iters=10)
+        warm32 = timed(lib32, lib32, None, iters=10)
+        cold = {key: cold_ms(f, flush) for key, f in
+                (("ms", kern), ("plain_ms", plain), ("library_ms", lib),
+                 ("library_f32_ms", lib32))}
+        if None in cold.values():
+            fail(f"in-kernel {name}: the profiler did not record the cold-L2 "
+                 f"calls ({cold})")
         del xf, wf
         flops = 2 * m * n * k
         nbytes = x.numel() * x.itemsize + w.numel() * w.itemsize \
             + m * n * 4 + gi * gj * 16
         bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        timings.add(times["timing"])
+        row = {**cold, "warm_ms": warm["ms"], "plain_warm_ms": warm["plain_ms"],
+               "library_warm_ms": warm["library_ms"],
+               "library_f32_warm_ms": warm32["ms"],
+               "call_ms": warm["call_ms"], "plain_call_ms": warm["plain_call_ms"],
+               "library_call_ms": warm["library_call_ms"], "bound_ms": bound_ms,
+               "split": plans[name][1]}
+        by_product[name] = row
+        timings.add(f"cold profiler, warm {warm['timing']}")
         for key in sums:
-            sums[key] += bound_ms if key == "bound_ms" else times[key]
-        print(f"in-kernel {name} ({m}, {k}) @ ({k}, {n}) bf16: kernel_ms "
-              f"{times['ms']:.5f} bound_ms {bound_ms:.5f} (bytes) plain_ms "
-              f"{times['plain_ms']:.5f} library_ms {times['library_ms']:.5f}"
-              f" ({times['timing']}); per call kernel "
-              f"{times['call_ms']:.5f} plain {times['plain_call_ms']:.5f} "
-              f"library {times['library_call_ms']:.5f}; max abs err "
-              f"{e:.3e} vs float64, {worst:.4f} of the float32 bound; "
-              f"{flops / times['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+            sums[key] += row[key]
+        l2 = " (below the HBM bound: an L2 reading)" \
+            if row["warm_ms"] < bound_ms else ""
+        print(f"in-kernel {name} ({m}, {k}) @ ({k}, {n}) bf16, split "
+              f"{plans[name][1]}: cold-L2 device ms kernel {row['ms']:.5f} "
+              f"bound {bound_ms:.5f} (bytes; {row['ms'] / bound_ms:.2f}x) "
+              f"plain {row['plain_ms']:.5f} torch.mm bf16->f32 "
+              f"{row['library_ms']:.5f} torch.matmul f32 "
+              f"{row['library_f32_ms']:.5f} (profiler); warm-L2 device "
+              f"ms kernel {row['warm_ms']:.5f}{l2} plain "
+              f"{row['plain_warm_ms']:.5f} torch.mm {row['library_warm_ms']:.5f}"
+              f" torch.matmul f32 {row['library_f32_warm_ms']:.5f} "
+              f"({warm['timing']}); per call (events) kernel "
+              f"{row['call_ms']:.5f}; max abs err {e:.3e} vs float64, "
+              f"{worst:.4f} of the float32 bound; bitwise equal across two "
+              f"calls; {flops / row['ms'] / 1e9:.1f} TFLOP/s cold", flush=True)
         free_card()
+    del flush_buf
+    free_card()
     shapes = ", ".join(f"{nm} ({x.shape[0]}x{x.shape[1]}x{w.shape[1]})"
                        for nm, x, w in proj)
     return {"name": "instrumented_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/instrumented_matmul.cu",
             "replaces": "src/repro/kernels/instrumented_matmul.py:29",
-            "launches": launches, "max_abs_err": err_max,
-            "ms": sums["ms"], "plain_ms": sums["plain_ms"],
-            "bound_ms": sums["bound_ms"], "bound_by": "bytes",
-            "library_ms": sums["library_ms"], "timing": "/".join(timings),
-            "aggregate": "sum over the four products",
-            "call_ms": sums["call_ms"],
-            "plain_call_ms": sums["plain_call_ms"],
-            "library_call_ms": sums["library_call_ms"],
+            "launches": launches, "max_abs_err": err_max, **sums,
+            "bound_by": "bytes", "timing": "/".join(sorted(timings)),
+            "aggregate": "sum over the four products; ms, plain_ms, "
+                         "library_ms and library_f32_ms with a cold L2",
+            "library": "torch.mm(x, w, out_dtype=torch.float32) on the bf16 "
+                       "operands; library_f32_ms: torch.matmul on the "
+                       "operands widened to float32",
+            "bodies": bodies, "by_product": by_product,
             "path": "in-kernel tier (glm4-9b layer-0 projections)",
             "shapes": shapes}
 
@@ -541,6 +628,52 @@ def _compare(name, got, want) -> int:
     return err
 
 
+def fused_cases(rng, objs, base, shift, n_blocks) -> int:
+    """The fused kernel's own edge cases: every record in one object and
+    one map cell (the worst contention), the largest buffer the wrapper
+    takes (several clusters merging), and time bins and blocks out of
+    range.  Returns the number of cases."""
+    s = _units([o[0] for o in objs])
+    e = _units([o[1] for o in objs])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = max(range(len(objs)), key=lambda i: objs[i][1] - objs[i][0])
+    cases = []
+    for n in (1, 45878, 300000):
+        cases.append((f"one object, one cell, n={n}",
+                      np.full(n, objs[big][0]), np.full(n, 3), n_blocks,
+                      shift))
+    n = 2**24 - 1
+    cases.append((f"n={n}, {ops.fused_plan(n, sms)[0]} clusters",
+                  _trace(rng, n, objs), rng.integers(0, 4, size=n), n_blocks,
+                  shift))
+    for n in (7, 65537):
+        a = _trace(rng, n, objs)
+        a[::5] = -2**31
+        a[1::5] = 2**31 - 1
+        cases.append((f"out-of-range bins and blocks, n={n}", a,
+                      rng.integers(-3, 7, size=n), 300, 4))
+    for label, a, tb, nb, sh in cases:
+        a, tb = _units(a), _units(tb)
+        _compare(f"trace_aggregate {label}",
+                 ops.trace_aggregate_t(a, tb, s, e, base, nb, 4, sh),
+                 ref.trace_aggregate_ref(a, tb, s, e, base, nb, 4, sh))
+    return len(cases)
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, memsets, copies) one call
+    of ``fn()`` runs, from the profiler's records."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_kernels(main, fallback, families) -> list:
     rng = np.random.default_rng(SEED)
     hot = main["hot"]
@@ -581,12 +714,18 @@ def phase_kernels(main, fallback, families) -> list:
                      ref.trace_aggregate_ref(a, tb, s, e, base, nb, tb_n,
                                              sh))
             cases += 1
+    cases += fused_cases(rng, objs_main, base, shift, n_blocks)
     print(f"kernels: {cases} edge cases equal to the plain versions "
           "(counts compared exactly)", flush=True)
 
-    # timing at the main path's largest trace buffer
+    # timing at the main path's largest trace buffer: records in random
+    # order and, for the fused kernel, also the same records in
+    # ascending runs, the order in which the instrumenter emits a buffer
+    # (consecutive addresses of one tensor after another)
     k = len(objs_main)
-    a = _units(_trace(rng, n_main, objs_main, misses=False))
+    a_np = _trace(rng, n_main, objs_main, misses=False)
+    a = _units(a_np)
+    a_runs = _units(np.sort(a_np))
     tb = _units(np.full(n_main, n_tbins - 1))
     s = _units([o[0] for o in objs_main])
     e = _units([o[1] for o in objs_main])
@@ -620,12 +759,26 @@ def phase_kernels(main, fallback, families) -> list:
          {"fallback (can_fuse false)": fallback["hotness_histogram"]}),
         ("trace_aggregate", "src/repro_torch/kernels/csrc/trace_aggregate.cu",
          "src/repro/kernels/trace_aggregate.py:73",
-         lambda: ops.trace_aggregate_t(a, tb, s, e, base, n_blocks, n_tbins,
-                                       shift),
-         lambda: ref.trace_aggregate_ref(a, tb, s, e, base, n_blocks,
+         lambda: ops.trace_aggregate_t(a_runs, tb, s, e, base, n_blocks,
+                                       n_tbins, shift),
+         lambda: ref.trace_aggregate_ref(a_runs, tb, s, e, base, n_blocks,
                                          n_tbins, shift),
          None, 8 * n_main + 8 * k + 4 * k + 4 * cells, fused_paths),
     ]
+    shuffled = timed(lambda: ops.trace_aggregate_t(a, tb, s, e, base, n_blocks,
+                                                   n_tbins, shift),
+                     lambda: ref.trace_aggregate_ref(a, tb, s, e, base,
+                                                     n_blocks, n_tbins, shift),
+                     None)
+    _compare(f"trace_aggregate at {shapes}, random order",
+             ops.trace_aggregate_t(a, tb, s, e, base, n_blocks, n_tbins, shift),
+             ref.trace_aggregate_ref(a, tb, s, e, base, n_blocks, n_tbins,
+                                     shift))
+    one = device_ops(rows[2][3])
+    print(f"kernels: one trace_aggregate_t call at {shapes} runs "
+          f"{len(one)} device operation(s): {one}", flush=True)
+    if len(one) != 1:
+        fail(f"kernels: the fused call ran {len(one)} device operations")
     out = []
     for name, src, replaces, kern, plain, lib, nbytes, paths in rows:
         err = _compare(f"{name} at {shapes}", kern(), plain())
@@ -636,7 +789,16 @@ def phase_kernels(main, fallback, families) -> list:
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         row.update({"bound_ms": bound, "bound_by": "bytes",
                     "launches_by_path": paths, "shapes": shapes})
+        if name == "trace_aggregate":
+            row.update({"order": "records in ascending runs, as emitted",
+                        "ms_random_order": shuffled["ms"],
+                        "call_ms_random_order": shuffled["call_ms"]})
         out.append(row)
+        if name == "trace_aggregate":
+            print(f"kernel trace_aggregate at {shapes}, records in random "
+                  f"order: device ms kernel={shuffled['ms']:.5f} plain="
+                  f"{shuffled['plain_ms']:.5f}; per call (events) kernel="
+                  f"{shuffled['call_ms']:.5f}", flush=True)
         print(f"kernel {name} at {shapes}: device ms kernel={row['ms']:.5f} "
               f"plain={row['plain_ms']:.5f} library={row['library_ms']} "
               f"bound={bound:.6f}; per call (events) kernel="

@@ -36,12 +36,13 @@ SIGNATURES = {
     "hotness_histogram": [_I, _P, _P, _L, _I, _I, _I, _I, _P, _I, _I, _I,
                           _P],
     # device, addrs, tbins, n, starts, ends, k, base, shift, n_blocks,
-    # n_tbins, counts, hist, blocks, threads, smem, stream
+    # n_tbins, counts, hist, clusters, cluster, threads, smem, stream
     "trace_aggregate": [_I, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                        _I, _I, _I, _P],
-    # device, x, w, out, trace, m, k, n, is_bf16, bytes_read, bytes_written,
-    # stream
-    "instrumented_matmul": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _P],
+    # device, x, w, out, trace, m, k, n, is_bf16, split, bytes_read,
+    # bytes_written, stream
+    "instrumented_matmul": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
 }
 
 _libs: dict = {}        # kernel name -> loaded ctypes.CDLL (process-wide)

@@ -14,7 +14,8 @@ Two levels:
     they run the plain version in :mod:`repro_torch.kernels.ref`.  There
     is no fallback from the kernel to the plain version.
 
-Every kernel launch adds one to ``launches[<kernel>]``.
+Every kernel launch adds one to ``launches[<kernel>]``; each launch of
+``instrumented_matmul`` also adds one to ``bodies[<body>]``.
 
 Addresses in 512-byte units are lossless because the pool rounds tensors
 to 512 B.
@@ -29,17 +30,27 @@ from . import build, ref
 
 UNIT_SHIFT = 9                 # 512-byte address units
 BLOCK_SHIFT = 12               # 2 MiB blocks = 4096 units = 2**12
-THREADS = 256                  # threads per block of every kernel
-RECORDS_PER_THREAD = 8         # grid sizing: records each thread takes
+THREADS = 256                  # threads per block of the two unfused kernels
+RECORDS_PER_THREAD = 8         # their grid sizing: records each thread takes
+# the fused kernel (csrc/trace_aggregate.cu): clusters of FUSED_CLUSTER
+# blocks (the portable maximum) of one of FUSED_THREADS threads, each
+# thread loading FUSED_RECORDS records a round (the kernel's RECORDS)
+FUSED_CLUSTER = 8
+FUSED_THREADS = (512, 1024)
+FUSED_RECORDS = 8
+FUSED_ROUNDS = 4               # rounds one cluster takes before another joins
 
 #: kernel name -> number of launches (the CPU path never counts)
 launches = {"object_histogram": 0, "hotness_histogram": 0,
             "trace_aggregate": 0, "instrumented_matmul": 0}
+#: body of instrumented_matmul -> number of launches
+bodies = {"wgmma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counter in (launches, bodies):
+        for k in counter:
+            counter[k] = 0
 
 
 # ---------------------------------------------------------------- host side
@@ -134,10 +145,39 @@ def _smem_optin(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
 
 
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _grid(n: int, dev: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_block = THREADS * RECORDS_PER_THREAD
-    return max(1, min((n + per_block - 1) // per_block, 2 * sms))
+    return max(1, min((n + per_block - 1) // per_block, 2 * _sms(dev)))
+
+
+def fused_plan(n: int, sms: int):
+    """(clusters, threads) of the fused kernel for ``n`` records on a card
+    of ``sms`` SMs.  One cluster while its blocks take ``n`` in
+    FUSED_ROUNDS rounds of loads: the launch then writes its outputs in
+    full.  Beyond that as many as fill the card, merging into outputs
+    zeroed by one fill.  Blocks of the fewest threads that take a block's
+    share in one round: smaller blocks start and set up sooner."""
+    per_round = FUSED_CLUSTER * FUSED_THREADS[-1] * FUSED_RECORDS
+    want = -(-n // (per_round * FUSED_ROUNDS))
+    clusters = max(1, min(want, sms // FUSED_CLUSTER))
+    share = fused_shares(n, clusters * FUSED_CLUSTER)[0][1]
+    threads = next((t for t in FUSED_THREADS if share <= t * FUSED_RECORDS),
+                   FUSED_THREADS[-1])
+    return clusters, threads
+
+
+def fused_shares(n: int, blocks: int) -> list:
+    """[lo, hi) of the records each of ``blocks`` blocks takes, as the
+    fused kernel computes them: even shares in whole rounds of
+    FUSED_RECORDS, the last ones shorter or empty."""
+    per_block = -(-n // blocks)
+    share = -(-per_block // FUSED_RECORDS) * FUSED_RECORDS
+    return [(min(n, b * share), min(n, b * share + share))
+            for b in range(blocks)]
 
 
 def _check(name: str, *tensors: torch.Tensor) -> str:
@@ -223,10 +263,15 @@ def trace_aggregate_t(addrs: torch.Tensor, tbins: torch.Tensor,
     if smem > _smem_optin(dev):
         raise ValueError(f"fused problem (K={k}, {n_tbins}x{n_blocks}) "
                          f"needs {smem} B of shared memory; check can_fuse")
-    counts = torch.zeros(k, dtype=torch.int32, device=dev)
-    hist = torch.zeros((n_tbins, n_blocks), dtype=torch.int32, device=dev)
+    clusters, threads = fused_plan(n, _sms(dev))
+    # one buffer for both outputs, the map first (16-byte aligned for the
+    # kernel's vector stores): written in full by one cluster, zeroed by
+    # one fill when several clusters merge into it
+    cells = n_tbins * n_blocks
+    alloc = torch.empty if clusters == 1 else torch.zeros
+    out = alloc(cells + k, dtype=torch.int32, device=dev)
     _launch("trace_aggregate", dev, addrs.data_ptr(), tbins.data_ptr(), n,
             starts.data_ptr(), ends.data_ptr(), k, base, block_shift,
-            n_blocks, n_tbins, counts.data_ptr(), hist.data_ptr(),
-            _grid(n, dev), THREADS, smem)
-    return counts, hist
+            n_blocks, n_tbins, out.data_ptr() + 4 * cells, out.data_ptr(),
+            clusters, FUSED_CLUSTER, threads, smem)
+    return out[cells:], out[:cells].view(n_tbins, n_blocks)

@@ -109,6 +109,103 @@ def test_matmul_traced_equals_plain_version(rng, card, m, k, n, dtype):
     assert bool(((out.double() - exact).abs() <= bound).all())
 
 
+def _bf16(rng, shape, card):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(card, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 4096, 4096), (128, 13696, 512),
+                                   (256, 1000, 384)])
+def test_matmul_traced_wgmma_split_k(rng, card, m, k, n):
+    """Split-K shapes of the wgmma body: within the float32 bound of the
+    float64 product, the trace exact, two calls bitwise equal."""
+    x, w = _bf16(rng, (m, k), card), _bf16(rng, (k, n), card)
+    body, split = im._plan(m, k, n, x.dtype, im._resident(x.device))
+    assert body == "wgmma" and split > 1
+    ops.reset_launches()
+    out, trace = im.matmul_traced(x, w)
+    again, _ = im.matmul_traced(x, w)
+    torch.cuda.synchronize()
+    assert im.bodies == {"wgmma": 2, "simt": 0}
+    assert torch.equal(out, again)
+    assert torch.equal(trace, im.matmul_traced_ref(x, w)[1])
+    exact = x.double() @ w.double()
+    gamma = k * 2.0**-24 / (1 - k * 2.0**-24)
+    bound = gamma * (x.double().abs() @ w.double().abs())
+    assert bool(((out.double() - exact).abs() <= bound).all())
+
+
+def test_matmul_traced_wgmma_selects_rows_of_w(rng, card):
+    """x picks row i % K of w for output row i, so out must be w's rows
+    exactly: a wrong transpose, swizzle or box order of the N-major w tile
+    moves values between columns or rows."""
+    m, k, n = 256, 256, 384
+    w = _bf16(rng, (k, n), card)
+    x = torch.zeros((m, k), dtype=torch.bfloat16, device=card)
+    x[torch.arange(m), torch.arange(m) % k] = 1
+    ops.reset_launches()
+    out, _ = im.matmul_traced(x, w)
+    torch.cuda.synchronize()
+    assert im.bodies["wgmma"] == 1
+    assert torch.equal(out, w.float()[torch.arange(m) % k])
+
+
+@pytest.mark.parametrize("dtype,k,body", [(torch.bfloat16, 64, "wgmma"),
+                                          (torch.bfloat16, 4104, "wgmma"),
+                                          (torch.bfloat16, 100, "simt"),
+                                          (torch.float32, 64, "simt")])
+def test_matmul_traced_body_counter(rng, card, dtype, k, body):
+    x = _bf16(rng, (128, k), card).to(dtype)
+    w = _bf16(rng, (k, 256), card).to(dtype)
+    ops.reset_launches()
+    im.matmul_traced(x, w)
+    torch.cuda.synchronize()
+    assert im.bodies == {"wgmma": int(body == "wgmma"),
+                         "simt": int(body == "simt")}
+    assert ops.launches["instrumented_matmul"] == 1
+
+
+def _fused_case(card, a, t, starts, ends, base, nb, ntb, shift):
+    a, t = _units(a, card), _units(t, card)
+    s, e = _units(starts, card), _units(ends, card)
+    ops.reset_launches()
+    got = ops.trace_aggregate_t(a, t, s, e, base, nb, ntb, shift)
+    want = ref.trace_aggregate_ref(a, t, s, e, base, nb, ntb, shift)
+    torch.cuda.synchronize()
+    assert ops.launches["trace_aggregate"] == 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[1].shape == (ntb, nb)
+
+
+@pytest.mark.parametrize("n", [1, 45878, 300000])
+def test_fused_one_object_one_cell(rng, card, n):
+    """Worst contention: every record in one object and one map cell."""
+    starts, ends = _table(rng, 20)
+    biggest = int(np.argmax(ends - starts))
+    a = np.full(n, starts[biggest])
+    _fused_case(card, a, np.full(n, 3), starts, ends, 4096, 2241, 4, 15)
+
+
+def test_fused_large_buffer_merges_clusters(rng, card):
+    """N = 2**24 - 1: several clusters merge into the zeroed outputs."""
+    n = 2**24 - 1
+    assert ops.fused_plan(n, ops._sms(card))[0] > 1
+    starts, ends = _table(rng, 20)
+    a = starts[rng.integers(0, 20, n)] + rng.integers(0, 4096, n)
+    _fused_case(card, a, rng.integers(0, 4, n), starts, ends, 4096, 2241, 4,
+                6)
+
+
+@pytest.mark.parametrize("n", [7, 65537])
+def test_fused_drops_out_of_range_bins_and_blocks(rng, card, n):
+    starts, ends = _table(rng, 20)
+    a = starts[rng.integers(0, 20, n)] + rng.integers(-8192, 8192, n)
+    a[::5] = -2**31
+    a[1::5] = 2**31 - 1
+    t = rng.integers(-3, 7, n)
+    _fused_case(card, a, t, starts, ends, 6000, 300, 4, 4)
+
+
 def test_matmul_traced_rejects_non_contiguous(card):
     x = torch.ones((128, 256), device=card)
     with pytest.raises(ValueError, match="contiguous"):

@@ -25,18 +25,26 @@ non-zero and print no result):
                 bitwise equal across two calls; timed with a cold L2 (a
                 256 MiB write between calls) and warm, against the plain
                 version, ``torch.mm(out_dtype=float32)`` on the bf16
-                operands and ``torch.matmul`` in float32;
+                operands and ``torch.matmul`` in float32; then the same
+                products with float32 operands on the simt body, checked
+                and timed cold;
   5. fallback — a fine session without a hotness map (launches the object
                 histogram kernel) and one whose hotness map is too large to
                 fuse (launches the object and hotness kernels), each held
-                against the same session on the CPU;
+                against the same session on the CPU; notes the largest
+                trace buffer;
   6. kernels  — each trace kernel against its plain PyTorch version on the
                 card, at the main path's shapes and at edge cases (equal
-                counts required; for the fused kernel also the worst
-                contention, 2**24 - 1 records over several clusters, and
-                out-of-range bins and blocks); one fused call at the largest
-                buffer must be one device operation; timed on the device
-                with ``torch.profiler`` and per call with CUDA events;
+                counts required; also the worst contention, 2**24 - 1
+                records over several clusters, out-of-range bins and
+                blocks, and for the hotness kernel maps just within and
+                just beyond one block's shared memory and 8 MiB); one call
+                of each kernel at the shapes it runs at must be one device
+                operation (no fill); timed on the device with
+                ``torch.profiler`` and per call with CUDA events: the object
+                and fused kernels at the main path's largest buffer, records
+                in ascending runs and shuffled, the hotness kernel at phase
+                5's map and largest buffer and at the main path's map;
   7. cpu      — the same ``run`` on reduced glm4-9b, zamba2-7b, mamba2-2.7b
                 and dbrx-132b on the card and on the CPU: equal reports; and
                 each model's logits on the card against the CPU on the same
@@ -67,6 +75,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12              # H100 SXM float32 peak outside the tensor cores
 STEPS = 4
 SEED = 0
 DBRX_LAYERS = 4                 # of 40: 57 GB of float32 weights at width
@@ -112,21 +121,27 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters: int = 50):
+def device_ms(fn, iters: int = 50, tries: int = 3):
     """Device time per call of everything ``fn()`` launches (kernels,
-    memsets, copies), from the CUPTI records of ``torch.profiler``; None
-    when the profiler saw no device activity."""
+    memsets, copies), from the CUPTI records of ``torch.profiler``.  Every
+    call runs the same device operations, so a window whose record count is
+    not a multiple of ``iters`` lost records and is taken again; None when
+    no window of ``tries`` was whole or the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev and len(dev) % iters == 0:
+            return sum(dev) / iters / 1e3
+    return None
 
 
 def timed(kern, plain, lib, iters: int = 50) -> dict:
@@ -476,17 +491,37 @@ def phase_in_kernel(proj) -> dict:
         if None in cold.values():
             fail(f"in-kernel {name}: the profiler did not record the cold-L2 "
                  f"calls ({cold})")
+        # the SIMT body on the same operands in float32 (the body float32
+        # operands take): its trace exact, its product within the float32
+        # bound, timed cold like the rest
+        out32, trace32 = im.matmul_traced(xf, wf)
+        err32 = (out32.double() - xf.double() @ wf.double()).abs()
+        bound32 = gamma * (xf.double().abs() @ wf.double().abs())
+        if not torch.equal(trace32, im.matmul_traced_ref(xf, wf)[1]) \
+                or not bool((err32 <= bound32).all()):
+            fail(f"in-kernel {name}: the float32 (simt) body is off its "
+                 "plain version's trace or the float32 bound")
+        del out32, trace32, err32, bound32
+        simt = cold_ms(lambda: im.matmul_traced(xf, wf), flush)
+        if simt is None:
+            fail(f"in-kernel {name}: the profiler did not record the "
+                 "float32 calls")
         del xf, wf
         flops = 2 * m * n * k
         nbytes = x.numel() * x.itemsize + w.numel() * w.itemsize \
             + m * n * 4 + gi * gj * 16
         bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        nbytes32 = 4 * (x.numel() + w.numel()) + m * n * 4 + gi * gj * 16
+        simt_bound = max(flops / FP32_FLOPS, nbytes32 / HBM_BYTES_PER_S) * 1e3
         row = {**cold, "warm_ms": warm["ms"], "plain_warm_ms": warm["plain_ms"],
                "library_warm_ms": warm["library_ms"],
                "library_f32_warm_ms": warm32["ms"],
                "call_ms": warm["call_ms"], "plain_call_ms": warm["plain_call_ms"],
                "library_call_ms": warm["library_call_ms"], "bound_ms": bound_ms,
-               "split": plans[name][1]}
+               "split": plans[name][1],
+               "simt_f32": {"ms": simt, "bound_ms": simt_bound,
+                            "bound_by": "operations",
+                            "library_ms": cold["library_f32_ms"]}}
         by_product[name] = row
         timings.add(f"cold profiler, warm {warm['timing']}")
         for key in sums:
@@ -505,7 +540,10 @@ def phase_in_kernel(proj) -> dict:
               f"({warm['timing']}); per call (events) kernel "
               f"{row['call_ms']:.5f}; max abs err {e:.3e} vs float64, "
               f"{worst:.4f} of the float32 bound; bitwise equal across two "
-              f"calls; {flops / row['ms'] / 1e9:.1f} TFLOP/s cold", flush=True)
+              f"calls; {flops / row['ms'] / 1e9:.1f} TFLOP/s cold; float32 "
+              f"operands on the simt body: cold-L2 device ms {simt:.5f} bound "
+              f"{simt_bound:.5f} (operations at 67 TFLOP/s) torch.matmul f32 "
+              f"{row['library_f32_ms']:.5f}", flush=True)
         free_card()
     del flush_buf
     free_card()
@@ -528,7 +566,8 @@ def phase_in_kernel(proj) -> dict:
 
 # ------------------------------------------------------------------ phase 5
 def _fine_session(cfg, device, hotness):
-    """A fine-grained session over reduced glm4-9b; returns its reports."""
+    """A fine-grained session over reduced glm4-9b; returns its reports and
+    the largest trace buffer's record count."""
     params, x = analyze.make_inputs(cfg, SEED, "cpu")
     tools = ["workingset"]
     if hotness is not None:
@@ -541,12 +580,16 @@ def _fine_session(cfg, device, hotness):
     # time bins from the step, not the wall clock, so card and CPU agree
     session.instrumenter.time_source = \
         lambda: float(max(session.handler._step, 0))
+    sizes = [0]
+    session.handler.subscribe(
+        lambda ev: sizes.append(int(np.sum(ev.attrs["object_counts"]))),
+        kinds=("trace_buffer",))
     with torch.inference_mode(), session:
         for s in range(2):
             session.handler.step_start(s)
             forward(moved, xd, cfg)
             session.handler.step_end(s)
-    return session.reports().data
+    return session.reports().data, max(sizes)
 
 
 def _to(tree, device):
@@ -561,16 +604,18 @@ def phase_fallback() -> dict:
            "t_max": 2.0, "block_shift": 5}
     if ops.can_fuse(64, big["n_blocks"], big["n_tbins"], device="cuda"):
         fail("fallback: can_fuse accepted an 8 MiB hotness map")
-    counts = {}
+    counts = {"largest": 0, "map": big}
     for label, hotness in (("no-hotness", None), ("unfusable", big)):
         torch.cuda.synchronize()
         ops.reset_launches()
-        got = _fine_session(cfg, "cuda", hotness)
+        got, largest = _fine_session(cfg, "cuda", hotness)
         torch.cuda.synchronize()
         launched = dict(ops.launches)
-        want = _fine_session(cfg, "cpu", hotness)
-        print(f"fallback {label}: launches {launched}; reports equal to "
-              f"the CPU's: {got == want}", flush=True)
+        want, _ = _fine_session(cfg, "cpu", hotness)
+        counts["largest"] = max(counts["largest"], largest)
+        print(f"fallback {label}: launches {launched}; largest trace buffer "
+              f"{largest} records; reports equal to the CPU's: "
+              f"{got == want}", flush=True)
         if got != want:
             fail(f"fallback {label}: card {got} != cpu {want}")
         if launched["object_histogram"] == 0 or launched["trace_aggregate"]:
@@ -579,6 +624,9 @@ def phase_fallback() -> dict:
             fail(f"fallback {label}: hotness kernel never launched")
         for k, v in launched.items():
             counts[k] = counts.get(k, 0) + v
+    # every record of a buffer lies in a live tensor, so N is its counts' sum
+    if counts["largest"] <= 0:
+        fail("fallback: no trace buffer with records")
     return counts
 
 
@@ -660,6 +708,61 @@ def fused_cases(rng, objs, base, shift, n_blocks) -> int:
     return len(cases)
 
 
+def _spread_shift(objs, n_blocks) -> int:
+    """The least block shift at which ``n_blocks`` blocks from the first
+    object's start cover every object."""
+    span = objs[-1][1] - objs[0][0]
+    return max(0, (span // n_blocks).bit_length())
+
+
+def histogram_cases(rng, objs) -> int:
+    """The object and hotness kernels' own edge cases, each kernel against
+    its plain version: every record in one object and one map cell (the
+    worst contention); maps just within and just beyond one block's shared
+    memory and the fallback's 8 MiB map (one cluster, owner tiles or global
+    atomics); time bins and blocks out of range; the largest buffer the
+    wrapper takes.  Returns the number of cases."""
+    s = _units([o[0] for o in objs])
+    e = _units([o[1] for o in objs])
+    base = objs[0][0]
+    per_block = torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin // 4
+    maps = ((4, 2241), (1, per_block), (1, per_block + 1), (64, 32768))
+    big = max(range(len(objs)), key=lambda i: objs[i][1] - objs[i][0])
+    cases = []
+    for n in (1, 45878, 300000):
+        for tb_n, nb in (maps[0], maps[3]):
+            cases.append((f"one object, one cell, n={n} {tb_n}x{nb}",
+                          np.full(n, objs[big][0]), np.full(n, 3), tb_n, nb,
+                          base, 15))
+    for n in (1000, 45878):
+        for tb_n, nb in maps:
+            cases.append((f"n={n} {tb_n}x{nb}", _trace(rng, n, objs),
+                          rng.integers(0, tb_n, size=n), tb_n, nb, base,
+                          _spread_shift(objs, nb)))
+    for n in (7, 65537):
+        for tb_n, nb in ((4, 300), (4, 14529), (64, 32768)):
+            a = _trace(rng, n, objs)
+            a[::5] = -2**31
+            a[1::5] = 2**31 - 1
+            cases.append((f"out-of-range bins and blocks, n={n} {tb_n}x{nb}",
+                          a, rng.integers(-3, tb_n + 3, size=n), tb_n, nb,
+                          base + 6000, 4))
+    n = 2**24 - 1
+    a = _trace(rng, n, objs)
+    for tb_n, nb in (maps[0], maps[3]):
+        cases.append((f"n={n} {tb_n}x{nb}", a, rng.integers(0, tb_n, size=n),
+                      tb_n, nb, base, _spread_shift(objs, nb)))
+    for label, a, tb, tb_n, nb, hbase, sh in cases:
+        a, tb = _units(a), _units(tb)
+        _compare(f"object_histogram {label}", ops.object_histogram_t(a, s, e),
+                 ref.object_histogram_ref(a, s, e))
+        _compare(f"hotness_histogram {label}",
+                 ops.hotness_histogram_t(a, tb, hbase, nb, tb_n, sh),
+                 ref.hotness_histogram_ref(a, tb, hbase, nb, tb_n, sh))
+    return 2 * len(cases)
+
+
 def device_ops(fn) -> list:
     """Names of the device operations (kernels, memsets, copies) one call
     of ``fn()`` runs, from the profiler's records."""
@@ -672,6 +775,17 @@ def device_ops(fn) -> list:
         torch.cuda.synchronize()
     return [e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _variant(label, kern, plain, lib, nbytes) -> dict:
+    """Times of a kernel at one more input, with its bound."""
+    t = timed(kern, plain, lib)
+    t["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel {label}: device ms kernel={t['ms']:.5f} plain="
+          f"{t['plain_ms']:.5f} library={t['library_ms']} bound="
+          f"{t['bound_ms']:.6f}; per call (events) kernel={t['call_ms']:.5f}",
+          flush=True)
+    return t
 
 
 def phase_kernels(main, fallback, families) -> list:
@@ -715,13 +829,14 @@ def phase_kernels(main, fallback, families) -> list:
                                              sh))
             cases += 1
     cases += fused_cases(rng, objs_main, base, shift, n_blocks)
+    cases += histogram_cases(rng, objs_main)
     print(f"kernels: {cases} edge cases equal to the plain versions "
           "(counts compared exactly)", flush=True)
 
-    # timing at the main path's largest trace buffer: records in random
-    # order and, for the fused kernel, also the same records in
-    # ascending runs, the order in which the instrumenter emits a buffer
-    # (consecutive addresses of one tensor after another)
+    # timing at the main path's largest trace buffer: records in ascending
+    # runs, the order in which the instrumenter emits a buffer (consecutive
+    # addresses of one tensor after another), and the same records in
+    # random order
     k = len(objs_main)
     a_np = _trace(rng, n_main, objs_main, misses=False)
     a = _units(a_np)
@@ -729,82 +844,126 @@ def phase_kernels(main, fallback, families) -> list:
     tb = _units(np.full(n_main, n_tbins - 1))
     s = _units([o[0] for o in objs_main])
     e = _units([o[1] for o in objs_main])
-    idx = torch.searchsorted(s, a, right=True) - 1
-    ok = (idx >= 0) & (a < e[idx.clamp(0, k - 1)])
-    obj_bins = idx[ok].long()
-    blk = (a - base) >> shift
+    cells = n_tbins * n_blocks
+
+    def obj_bins(x):           # what torch.bincount counts for the objects
+        idx = torch.searchsorted(s, x, right=True) - 1
+        return idx[(idx >= 0) & (x < e[idx.clamp(0, k - 1)])].long()
+
+    blk = (a_runs - base) >> shift
     okb = (blk >= 0) & (blk < n_blocks)
     hot_bins = (tb[okb].long() * n_blocks + blk[okb])
-    cells = n_tbins * n_blocks
+    bins_runs, bins_random = obj_bins(a_runs), obj_bins(a)
     shapes = f"N={n_main} K={k} map {n_tbins}x{n_blocks}"
+    # the hotness kernel's own launches: phase 5's unfusable map at its
+    # largest buffer, records in runs spread over the map
+    fb = fallback["map"]
+    n_fb, fb_tbins, fb_blocks = fallback["largest"], fb["n_tbins"], \
+        fb["n_blocks"]
+    fb_base, fb_shift = objs_main[0][0], _spread_shift(objs_main, fb_blocks)
+    a_fb = _units(np.sort(_trace(rng, n_fb, objs_main, misses=False)))
+    tb_fb = _units(np.full(n_fb, fb_tbins - 1))
+    fb_cells = fb_tbins * fb_blocks
+    fb_bins = (fb_tbins - 1) * fb_blocks + ((a_fb - fb_base) >> fb_shift).long()
+    fb_shapes = f"N={n_fb} map {fb_tbins}x{fb_blocks}"
+    fb_plan = ops.hotness_plan(n_fb, fb_tbins, fb_blocks,
+                               ops._sms(a.device), ops._smem_optin(a.device))
     fused_paths = {"glm4-9b": main["launches"], **families["launches"]}
+    obj_call = lambda: ops.object_histogram_t(a_runs, s, e)      # noqa: E731
+    hot_call = lambda: ops.hotness_histogram_t(                  # noqa: E731
+        a_fb, tb_fb, fb_base, fb_blocks, fb_tbins, fb_shift)
+    hot_main = lambda: ops.hotness_histogram_t(                  # noqa: E731
+        a_runs, tb, base, n_blocks, n_tbins, shift)
+    fused_call = lambda: ops.trace_aggregate_t(                  # noqa: E731
+        a_runs, tb, s, e, base, n_blocks, n_tbins, shift)
     rows = [
         ("object_histogram", "src/repro_torch/kernels/csrc/object_histogram.cu",
-         "src/repro/kernels/trace_aggregate.py:35",
-         lambda: ops.object_histogram_t(a, s, e),
-         lambda: ref.object_histogram_ref(a, s, e),
-         lambda: torch.bincount(obj_bins, minlength=k),
+         "src/repro/kernels/trace_aggregate.py:35", shapes, obj_call,
+         lambda: ref.object_histogram_ref(a_runs, s, e),
+         lambda: torch.bincount(bins_runs, minlength=k),
          4 * n_main + 8 * k + 4 * k,
          {"fallback": fallback["object_histogram"],
           "quickstart zamba2-7b": families["quickstart"]}),
         ("hotness_histogram",
          "src/repro_torch/kernels/csrc/hotness_histogram.cu",
-         "src/repro/kernels/hotness.py:30",
-         lambda: ops.hotness_histogram_t(a, tb, base, n_blocks, n_tbins,
-                                         shift),
-         lambda: ref.hotness_histogram_ref(a, tb, base, n_blocks, n_tbins,
-                                           shift),
-         lambda: torch.bincount(hot_bins, minlength=cells),
-         8 * n_main + 4 * cells,
+         "src/repro/kernels/hotness.py:30", f"{fb_shapes} ({fb_plan.kind})",
+         hot_call,
+         lambda: ref.hotness_histogram_ref(a_fb, tb_fb, fb_base, fb_blocks,
+                                           fb_tbins, fb_shift),
+         lambda: torch.bincount(fb_bins, minlength=fb_cells),
+         8 * n_fb + 4 * fb_cells,
          {"fallback (can_fuse false)": fallback["hotness_histogram"]}),
         ("trace_aggregate", "src/repro_torch/kernels/csrc/trace_aggregate.cu",
-         "src/repro/kernels/trace_aggregate.py:73",
-         lambda: ops.trace_aggregate_t(a_runs, tb, s, e, base, n_blocks,
-                                       n_tbins, shift),
+         "src/repro/kernels/trace_aggregate.py:73", shapes, fused_call,
          lambda: ref.trace_aggregate_ref(a_runs, tb, s, e, base, n_blocks,
                                          n_tbins, shift),
          None, 8 * n_main + 8 * k + 4 * k + 4 * cells, fused_paths),
     ]
-    shuffled = timed(lambda: ops.trace_aggregate_t(a, tb, s, e, base, n_blocks,
-                                                   n_tbins, shift),
-                     lambda: ref.trace_aggregate_ref(a, tb, s, e, base,
-                                                     n_blocks, n_tbins, shift),
-                     None)
-    _compare(f"trace_aggregate at {shapes}, random order",
-             ops.trace_aggregate_t(a, tb, s, e, base, n_blocks, n_tbins, shift),
-             ref.trace_aggregate_ref(a, tb, s, e, base, n_blocks, n_tbins,
-                                     shift))
-    one = device_ops(rows[2][3])
-    print(f"kernels: one trace_aggregate_t call at {shapes} runs "
-          f"{len(one)} device operation(s): {one}", flush=True)
-    if len(one) != 1:
-        fail(f"kernels: the fused call ran {len(one)} device operations")
+    # one device operation per call: no fill in front of a kernel that
+    # writes its whole output
+    for name, call, where in (("object_histogram_t", obj_call, shapes),
+                              ("hotness_histogram_t", hot_call, fb_shapes),
+                              ("hotness_histogram_t", hot_main,
+                               f"N={n_main} map {n_tbins}x{n_blocks}"),
+                              ("trace_aggregate_t", fused_call, shapes)):
+        one = device_ops(call)
+        print(f"kernels: one {name} call at {where} runs {len(one)} device "
+              f"operation(s): {one}", flush=True)
+        if len(one) != 1:
+            fail(f"kernels: one {name} call ran {len(one)} device operations")
+    # N = 0: the launch, set-up and write-out alone, what no buffer avoids
+    none = a_runs[:0]
+    variants = {
+        "object_histogram": {"random order": (
+            lambda: ops.object_histogram_t(a, s, e),
+            lambda: ref.object_histogram_ref(a, s, e),
+            lambda: torch.bincount(bins_random, minlength=k),
+            4 * n_main + 8 * k + 4 * k), "N=0": (
+            lambda: ops.object_histogram_t(none, s, e),
+            lambda: ref.object_histogram_ref(none, s, e),
+            lambda: torch.bincount(bins_runs[:0], minlength=k), 8 * k + 4 * k)},
+        "hotness_histogram": {f"N={n_main} map {n_tbins}x{n_blocks}": (
+            hot_main,
+            lambda: ref.hotness_histogram_ref(a_runs, tb, base, n_blocks,
+                                              n_tbins, shift),
+            lambda: torch.bincount(hot_bins, minlength=cells),
+            8 * n_main + 4 * cells), f"N=0 map {fb_tbins}x{fb_blocks}": (
+            lambda: ops.hotness_histogram_t(none, none, fb_base, fb_blocks,
+                                            fb_tbins, fb_shift),
+            lambda: ref.hotness_histogram_ref(none, none, fb_base, fb_blocks,
+                                              fb_tbins, fb_shift),
+            lambda: torch.bincount(fb_bins[:0], minlength=fb_cells),
+            4 * fb_cells)},
+        "trace_aggregate": {"random order": (
+            lambda: ops.trace_aggregate_t(a, tb, s, e, base, n_blocks,
+                                          n_tbins, shift),
+            lambda: ref.trace_aggregate_ref(a, tb, s, e, base, n_blocks,
+                                            n_tbins, shift),
+            None, 8 * n_main + 8 * k + 4 * k + 4 * cells)},
+    }
     out = []
-    for name, src, replaces, kern, plain, lib, nbytes, paths in rows:
-        err = _compare(f"{name} at {shapes}", kern(), plain())
+    for name, src, replaces, where, kern, plain, lib, nbytes, paths in rows:
+        err = _compare(f"{name} at {where}", kern(), plain())
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(paths.values()),
                "max_abs_err": err}
         row.update(timed(kern, plain, lib))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         row.update({"bound_ms": bound, "bound_by": "bytes",
-                    "launches_by_path": paths, "shapes": shapes})
-        if name == "trace_aggregate":
-            row.update({"order": "records in ascending runs, as emitted",
-                        "ms_random_order": shuffled["ms"],
-                        "call_ms_random_order": shuffled["call_ms"]})
-        out.append(row)
-        if name == "trace_aggregate":
-            print(f"kernel trace_aggregate at {shapes}, records in random "
-                  f"order: device ms kernel={shuffled['ms']:.5f} plain="
-                  f"{shuffled['plain_ms']:.5f}; per call (events) kernel="
-                  f"{shuffled['call_ms']:.5f}", flush=True)
-        print(f"kernel {name} at {shapes}: device ms kernel={row['ms']:.5f} "
+                    "launches_by_path": paths, "shapes": where,
+                    "order": "records in ascending runs, as emitted"})
+        print(f"kernel {name} at {where}: device ms kernel={row['ms']:.5f} "
               f"plain={row['plain_ms']:.5f} library={row['library_ms']} "
               f"bound={bound:.6f}; per call (events) kernel="
               f"{row['call_ms']:.5f} plain={row['plain_call_ms']:.5f} "
               f"library={row['library_call_ms']}; launches {paths}",
               flush=True)
+        row["variants"] = {}
+        for label, (vk, vp, vl, vb) in variants[name].items():
+            _compare(f"{name} {label}", vk(), vp())
+            row["variants"][label] = _variant(f"{name} {label}", vk, vp, vl,
+                                              vb)
+        out.append(row)
     return out
 
 
@@ -914,7 +1073,7 @@ def phase_profile(cfg) -> None:
     free_card()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    groups = {"trace kernels": ("histogram_kernel", "trace_aggregate_kernel"),
+    groups = {"trace kernels": ("_histogram_", "trace_aggregate_kernel"),
               "memcpy": ("memcpy",), "memset": ("memset",)}
     sums = dict.fromkeys([*groups, "model and other"], 0.0)
     for e in dev:

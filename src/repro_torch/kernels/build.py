@@ -3,9 +3,10 @@
 Each source in ``csrc/`` becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for Hopper (``sm_90a``) and loaded with
 ``ctypes``.  All missing libraries are compiled in parallel, one ``nvcc``
-each.  A library's file name carries a hash of its sources and flags, so
-an edited source is rebuilt and a stale library is never loaded.  The
-libraries go to ``_build/`` beside this file (listed in ``.gitignore``).
+each.  A library's file name carries a hash of its source, every header
+in ``csrc/`` and the flags, so an edited source or header is rebuilt and
+a stale library is never loaded.  The libraries go to ``_build/`` beside
+this file (listed in ``.gitignore``).
 
 Nothing here runs at import: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -29,12 +30,14 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: kernel name -> argtypes of its ``<name>_launch`` C function (every
 #: pointer and the stream as c_void_p, so ctypes never cuts them to 32 bits)
 SIGNATURES = {
-    # device, addrs, n, starts, ends, k, counts, blocks, threads, smem, stream
-    "object_histogram": [_I, _P, _L, _P, _P, _I, _P, _I, _I, _I, _P],
-    # device, addrs, tbins, n, base, shift, n_blocks, n_tbins, hist,
-    # blocks, threads, smem, stream
+    # device, addrs, n, starts, ends, k, counts, kind, blocks, cluster,
+    # threads, smem, stream
+    "object_histogram": [_I, _P, _L, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                         _P],
+    # device, addrs, tbins, n, base, shift, n_blocks, n_tbins, hist, kind,
+    # blocks, cluster, threads, smem, stream
     "hotness_histogram": [_I, _P, _P, _L, _I, _I, _I, _I, _P, _I, _I, _I,
-                          _P],
+                          _I, _I, _P],
     # device, addrs, tbins, n, starts, ends, k, base, shift, n_blocks,
     # n_tbins, counts, hist, clusters, cluster, threads, smem, stream
     "trace_aggregate": [_I, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
@@ -59,8 +62,12 @@ def nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    """Where kernel ``name``'s library goes: its file name hashes the
+    source, every header in ``csrc/`` (a superset of those it includes)
+    and the flags."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -39,71 +39,12 @@
 //    stores, so the outputs need no zero fill; with several (a buffer too
 //    large for one cluster) by global atomics into outputs the wrapper
 //    zeroed with one fill.
-#include <cooperative_groups.h>
-
-#include <climits>
-#include <cstdint>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+// The record loads, the lookup cache, the run merging and the merge into the
+// owning ranks are records.cuh's, shared with object_histogram.cu and
+// hotness_histogram.cu.
+#include "records.cuh"
 
 namespace {
-
-constexpr int RECORDS = 8;  // records a thread loads per round, per column
-
-// The `valid` records of each column from index i on (all RECORDS of them
-// as two 16-byte loads when the columns are aligned and none runs past n).
-__device__ __forceinline__ int load_records(const int* __restrict__ addrs,
-                                            const int* __restrict__ tbins, long long i,
-                                            long long n, bool vec, int (&a)[RECORDS],
-                                            int (&t)[RECORDS]) {
-  if (vec && i + RECORDS <= n) {
-    const int4* av = reinterpret_cast<const int4*>(addrs + i);
-    const int4* tv = reinterpret_cast<const int4*>(tbins + i);
-    const int4 a0 = __ldg(av), a1 = __ldg(av + 1), t0 = __ldg(tv), t1 = __ldg(tv + 1);
-    a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-    a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-    t[0] = t0.x; t[1] = t0.y; t[2] = t0.z; t[3] = t0.w;
-    t[4] = t1.x; t[5] = t1.y; t[6] = t1.z; t[7] = t1.w;
-    return RECORDS;
-  }
-  const int valid = i >= n ? 0 : static_cast<int>(min(n - i, static_cast<long long>(RECORDS)));
-#pragma unroll
-  for (int j = 0; j < RECORDS; ++j) {
-    a[j] = j < valid ? __ldg(addrs + i + j) : 0;
-    t[j] = j < valid ? __ldg(tbins + i + j) : 0;
-  }
-  return valid;
-}
-
-// A run of equal keys in one thread's records: table[key] += count once
-// the key changes (key < 0: records that count nowhere).
-struct Run {
-  int key = -1;
-  int count = 0;
-  __device__ __forceinline__ void add(int* table, int k) {
-    if (k != key) {
-      if (key >= 0 && count) atomicAdd(&table[key], count);
-      key = k;
-      count = 0;
-    }
-    count += k >= 0;
-  }
-};
-
-// Each lane's last run: one atomic for the whole warp when every lane holds
-// the same key (the common case, since a buffer's records come in runs of
-// one tensor), else one per lane.  Every lane of the warp calls it.
-__device__ __forceinline__ void flush_warp(int* table, const Run& run, int lane) {
-  const int first = __shfl_sync(0xffffffffu, run.key, 0);
-  if (__all_sync(0xffffffffu, run.key == first)) {
-    const int total = __reduce_add_sync(0xffffffffu, run.count);
-    if (lane == 0 && first >= 0 && total) atomicAdd(&table[first], total);
-  } else if (run.key >= 0 && run.count) {
-    atomicAdd(&table[run.key], run.count);
-  }
-}
 
 __global__ void __launch_bounds__(1024, 1)
     trace_aggregate_kernel(const int* __restrict__ addrs, const int* __restrict__ tbins,
@@ -122,13 +63,11 @@ __global__ void __launch_bounds__(1024, 1)
   int* ss = cnt + k;
   int* se = ss + k;
 
-  // this block's records: an even share of [0, n) in whole rounds of
-  // RECORDS; the first round is in flight while the block sets up
-  const bool vec = ((reinterpret_cast<uintptr_t>(addrs) | reinterpret_cast<uintptr_t>(tbins)) &
-                    15) == 0;
-  const long long share = ((n + gridDim.x - 1) / gridDim.x + RECORDS - 1) / RECORDS * RECORDS;
-  const long long lo = min(n, blockIdx.x * share);
-  const long long hi = min(n, lo + share);
+  // this block's records (block_share); the first round is in flight while
+  // the block sets up
+  const bool vec = aligned16(addrs) && aligned16(tbins);
+  long long lo, hi;
+  block_share(n, lo, hi);
   const long long span = static_cast<long long>(blockDim.x) * RECORDS;
   int a[RECORDS], t[RECORDS];
   int valid = load_records(addrs, tbins, lo + threadIdx.x * RECORDS, hi, vec, a, t);
@@ -136,36 +75,19 @@ __global__ void __launch_bounds__(1024, 1)
     ss[j] = starts[j];
     se[j] = ends[j];
   }
-  for (int g = threadIdx.x; g < cells / 4; g += blockDim.x) smem4[g] = make_int4(0, 0, 0, 0);
-  for (int j = cells / 4 * 4 + threadIdx.x; j < total; j += blockDim.x) acc[j] = 0;
+  zero_shared(smem4, total);
   __syncthreads();
 
   Run objects, cells_run;
-  // The last search's answer: idx is the upper-bound result for every a
-  // with from <= a < to (starts are sorted), and end its object's end.
-  int idx = -1;
-  long long from = 1, to = 0;
-  int end = 0;
+  ObjectLookup lookup;
   // the bounds are the same for the whole block, so every lane takes every round
   for (long long r = lo; r < hi; r += span) {
     if (valid) {
 #pragma unroll
       for (int j = 0; j < RECORDS; ++j) {
-        int obj = -1, cell = -1;
-        if (j < valid) {
-          if (a[j] < from || a[j] >= to) {
-            idx = find_object(ss, k, a[j]);
-            from = idx >= 0 ? ss[idx] : LLONG_MIN;
-            to = idx + 1 < k ? ss[idx + 1] : LLONG_MAX;
-            end = idx >= 0 ? se[idx] : 0;
-          }
-          if (idx >= 0 && a[j] < end) obj = idx;
-          const int blk = hot_block(a[j], base, shift);
-          if (blk >= 0 && blk < n_blocks && t[j] >= 0 && t[j] < n_tbins)
-            cell = t[j] * n_blocks + blk;
-        }
-        objects.add(cnt, obj);
-        cells_run.add(acc, cell);
+        const bool in = j < valid;
+        objects.add(cnt, in ? lookup(ss, se, k, a[j]) : -1);
+        cells_run.add(acc, in ? hot_cell(a[j], t[j], base, shift, n_blocks, n_tbins) : -1);
       }
     }
     valid = load_records(addrs, tbins, r + span + threadIdx.x * RECORDS, hi, vec, a, t);
@@ -174,52 +96,8 @@ __global__ void __launch_bounds__(1024, 1)
   flush_warp(cnt, objects, lane);
   flush_warp(acc, cells_run, lane);
 
-  // rank q owns values [q*per, (q+1)*per), whole groups of four.  Each
-  // block adds its non-zero partials of the values others own into the
-  // owner's copy (few: a buffer touches some 20 objects and cells), so the
-  // owner's copy becomes the sum over the cluster.
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int ranks = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int per = ((total + ranks - 1) / ranks + 3) / 4 * 4;
-  for (int g = threadIdx.x; 4 * g < total; g += blockDim.x) {
-    const int owner = 4 * g / per;
-    if (owner == rank) continue;
-    int v[4];
-    if (4 * g + 4 <= total) {
-      const int4 u = smem4[g];
-      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-    } else {
-      for (int j = 0; j < 4; ++j) v[j] = 4 * g + j < total ? acc[4 * g + j] : 0;
-    }
-    if (v[0] | v[1] | v[2] | v[3]) {
-      int* dst = cluster.map_shared_rank(acc, owner) + 4 * g;
-      for (int j = 0; j < 4; ++j)
-        if (v[j]) atomicAdd(dst + j, v[j]);
-    }
-  }
-  // after this barrier no block touches another's shared memory
-  cluster.sync();
-
-  // the owner writes its values: plain stores with one cluster (merge = 0),
-  // atomics of the non-zero ones into zeroed outputs with several
-  const bool vec_out = (reinterpret_cast<uintptr_t>(hist) & 15) == 0;
-  const int mine_hi = min(total, (rank + 1) * per);
-  for (int g = rank * per / 4 + threadIdx.x; 4 * g < mine_hi; g += blockDim.x) {
-    if (!merge && vec_out && 4 * g + 4 <= cells) {
-      reinterpret_cast<int4*>(hist)[g] = smem4[g];
-      continue;
-    }
-    for (int e = 4 * g; e < min(4 * g + 4, mine_hi); ++e) {
-      int* dst = e < cells ? hist + e : counts + (e - cells);
-      if (!merge) {
-        *dst = acc[e];
-      } else if (acc[e]) {
-        atomicAdd(dst, acc[e]);
-      }
-    }
-  }
+  cg::this_cluster().sync();
+  merge_into_owners(smem4, total, cells, hist, counts, merge);
 }
 
 }  // namespace
@@ -236,23 +114,9 @@ extern "C" int trace_aggregate_launch(int device, const void* addrs, const void*
                                       int threads, int smem_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = allow_smem(trace_aggregate_kernel, smem_bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   int merge = clusters > 1;
   void* args[] = {&addrs, &tbins, &n, &starts, &ends, &k, &base, &shift,
                   &n_blocks, &n_tbins, &counts, &hist, &merge};
-  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(trace_aggregate_kernel), args);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch(trace_aggregate_kernel, args, clusters * cluster, cluster, threads, smem_bytes,
+                stream);
 }

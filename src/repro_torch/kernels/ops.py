@@ -23,6 +23,8 @@ to 512 B.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -30,8 +32,13 @@ from . import build, ref
 
 UNIT_SHIFT = 9                 # 512-byte address units
 BLOCK_SHIFT = 12               # 2 MiB blocks = 4096 units = 2**12
-THREADS = 256                  # threads per block of the two unfused kernels
+THREADS = 256                  # threads per block of the GLOBAL kernels
 RECORDS_PER_THREAD = 8         # their grid sizing: records each thread takes
+TILE_THREADS = 512             # threads per block of the hotness TILES kernel
+#: how a histogram kernel keeps its accumulator (records.cuh's Kind, by
+#: index): one copy per block of clusters that share the records, one tile
+#: of the map per block, or global atomics
+KINDS = ("cluster", "tiles", "global")
 # the fused kernel (csrc/trace_aggregate.cu): clusters of FUSED_CLUSTER
 # blocks (the portable maximum) of one of FUSED_THREADS threads, each
 # thread loading FUSED_RECORDS records a round (the kernel's RECORDS)
@@ -149,9 +156,11 @@ def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _grid(n: int, dev: torch.device) -> int:
+def global_grid(n: int, sms: int) -> int:
+    """Blocks of a GLOBAL kernel for ``n`` records on a card of ``sms``
+    SMs: RECORDS_PER_THREAD records a thread, at most two blocks an SM."""
     per_block = THREADS * RECORDS_PER_THREAD
-    return max(1, min((n + per_block - 1) // per_block, 2 * _sms(dev)))
+    return max(1, min(-(-n // per_block), 2 * sms))
 
 
 def fused_plan(n: int, sms: int):
@@ -178,6 +187,77 @@ def fused_shares(n: int, blocks: int) -> list:
     share = -(-per_block // FUSED_RECORDS) * FUSED_RECORDS
     return [(min(n, b * share), min(n, b * share + share))
             for b in range(blocks)]
+
+
+class Plan(NamedTuple):
+    """One launch of a histogram kernel: its kind (one of KINDS), blocks,
+    blocks per cluster (0: no clusters), threads per block and dynamic
+    shared memory in bytes."""
+    kind: str
+    blocks: int
+    cluster: int
+    threads: int
+    smem: int
+
+    @property
+    def fills(self) -> bool:
+        """Whether the output must be zeroed before the launch: the kernel
+        adds into it (GLOBAL, or several clusters) instead of writing every
+        value itself."""
+        return self.kind == "global" or (self.kind == "cluster"
+                                         and self.blocks > self.cluster)
+
+
+def _cluster_plan(n: int, sms: int, smem: int) -> Plan:
+    clusters, threads = fused_plan(n, sms)
+    return Plan("cluster", clusters * FUSED_CLUSTER, FUSED_CLUSTER, threads,
+                smem)
+
+
+def object_plan(n: int, k: int, sms: int, smem_optin: int) -> Plan:
+    """The object histogram's launch for ``n`` records and ``k`` objects on
+    a card of ``sms`` SMs whose blocks may opt into ``smem_optin`` bytes of
+    shared memory: clusters with the table and the counts in each block's
+    shared memory while their 12*K bytes fit (as many clusters as
+    :func:`fused_plan` gives, one for every buffer of the main path), else
+    global atomics."""
+    if 12 * k <= smem_optin:
+        return _cluster_plan(n, sms, 12 * k)
+    return Plan("global", global_grid(n, sms), 0, THREADS, 0)
+
+
+def hotness_plan(n: int, n_tbins: int, n_blocks: int, sms: int,
+                 smem_optin: int) -> Plan:
+    """The hotness histogram's launch for ``n`` records over an
+    ``n_tbins`` x ``n_blocks`` map on a card of ``sms`` SMs whose blocks
+    may opt into ``smem_optin`` bytes of shared memory:
+
+    * ``cluster`` while the whole map fits one block (as the fused kernel);
+    * ``tiles``, one block per tile of the map, each at most the opt-in:
+      as many tiles as SMs, fewer where re-reading the trace once per tile
+      (8 B a record) would move more bytes than the map (4 B a cell);
+    * ``global`` where even the fewest tiles would."""
+    cells = n_tbins * n_blocks
+    if 4 * cells <= smem_optin:
+        return _cluster_plan(n, sms, 4 * cells)
+    cap = smem_optin // 16 * 4          # cells of the largest tile
+    fewest = -(-cells // cap)
+    tiles = max(fewest, sms)
+    if n:
+        tiles = min(tiles, cells // (2 * n))
+    if tiles < fewest:
+        return Plan("global", global_grid(n, sms), 0, THREADS, 0)
+    tile = -(-cells // tiles)
+    tile = -(-tile // 4) * 4            # whole 16-byte groups
+    return Plan("tiles", -(-cells // tile), 0, TILE_THREADS, 4 * tile)
+
+
+def tile_cells(cells: int, plan: Plan) -> list:
+    """[lo, hi) of the map cells each block of a ``tiles`` plan owns, as the
+    TILES kernel computes them."""
+    tile = plan.smem // 4
+    return [(b * tile, min(cells, (b + 1) * tile))
+            for b in range(plan.blocks)]
 
 
 def _check(name: str, *tensors: torch.Tensor) -> str:
@@ -215,19 +295,30 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     launches[name] += 1
 
 
+def _output(plan: Plan, shape, dev: torch.device) -> torch.Tensor:
+    """The int32 output of a histogram launch: zeroed by one fill only
+    where the kernel adds into it."""
+    alloc = torch.zeros if plan.fills else torch.empty
+    return alloc(shape, dtype=torch.int32, device=dev)
+
+
+def _plan_args(plan: Plan) -> tuple:
+    return (KINDS.index(plan.kind), plan.blocks, plan.cluster, plan.threads,
+            plan.smem)
+
+
 def object_histogram_t(addrs: torch.Tensor, starts: torch.Tensor,
                        ends: torch.Tensor) -> torch.Tensor:
     """int32 unit tensors → int32[K] counts."""
     if _check("object_histogram", addrs, starts, ends) == "cpu":
         return ref.object_histogram_ref(addrs, starts, ends)
     dev, n, k = addrs.device, addrs.shape[0], starts.shape[0]
-    counts = torch.zeros(k, dtype=torch.int32, device=dev)
     if k == 0:
-        return counts
-    smem = 12 * k if 12 * k <= _smem_optin(dev) else 0
+        return torch.zeros(0, dtype=torch.int32, device=dev)
+    plan = object_plan(n, k, _sms(dev), _smem_optin(dev))
+    counts = _output(plan, k, dev)
     _launch("object_histogram", dev, addrs.data_ptr(), n, starts.data_ptr(),
-            ends.data_ptr(), k, counts.data_ptr(), _grid(n, dev), THREADS,
-            smem)
+            ends.data_ptr(), k, counts.data_ptr(), *_plan_args(plan))
     return counts
 
 
@@ -240,12 +331,11 @@ def hotness_histogram_t(addrs: torch.Tensor, tbins: torch.Tensor, base: int,
         return ref.hotness_histogram_ref(addrs, tbins, base, n_blocks,
                                          n_tbins, block_shift)
     dev, n = addrs.device, addrs.shape[0]
-    hist = torch.zeros((n_tbins, n_blocks), dtype=torch.int32, device=dev)
-    cells = 4 * n_tbins * n_blocks
-    smem = cells if cells <= _smem_optin(dev) else 0
+    plan = hotness_plan(n, n_tbins, n_blocks, _sms(dev), _smem_optin(dev))
+    hist = _output(plan, (n_tbins, n_blocks), dev)
     _launch("hotness_histogram", dev, addrs.data_ptr(), tbins.data_ptr(), n,
             base, block_shift, n_blocks, n_tbins, hist.data_ptr(),
-            _grid(n, dev), THREADS, smem)
+            *_plan_args(plan))
     return hist
 
 

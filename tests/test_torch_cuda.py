@@ -228,3 +228,90 @@ def test_analyze_on_the_card_equals_the_cpu(card, arch):
     assert got.data == want.data
     assert ops.launches["trace_aggregate"] == len(buffers) > 0
     assert logits.device.type == "cuda" and bool(torch.isfinite(logits).all())
+
+
+def _histograms(card, a, t, starts, ends, base, nb, ntb, shift):
+    """Both unfused kernels against their plain versions, one launch each;
+    returns the two plans taken."""
+    a, t = _units(a, card), _units(t, card)
+    s, e = _units(starts, card), _units(ends, card)
+    ops.reset_launches()
+    got_c = ops.object_histogram_t(a, s, e)
+    got_h = ops.hotness_histogram_t(a, t, base, nb, ntb, shift)
+    torch.cuda.synchronize()
+    assert ops.launches["object_histogram"] == 1
+    assert ops.launches["hotness_histogram"] == 1
+    assert torch.equal(got_c, ref.object_histogram_ref(a, s, e))
+    assert torch.equal(got_h, ref.hotness_histogram_ref(a, t, base, nb, ntb,
+                                                        shift))
+    props = torch.cuda.get_device_properties(card)
+    sms, smem = props.multi_processor_count, \
+        props.shared_memory_per_block_optin
+    return (ops.object_plan(a.shape[0], starts.shape[0], sms, smem),
+            ops.hotness_plan(a.shape[0], ntb, nb, sms, smem))
+
+
+def _cells_per_block(card):
+    return torch.cuda.get_device_properties(
+        card).shared_memory_per_block_optin // 4
+
+
+def test_object_histogram_above_the_opt_in(rng, card):
+    """K one beyond what a block's shared memory holds: the global path."""
+    k = _cells_per_block(card) // 3 + 1
+    starts, ends = _table(rng, k)
+    n = 65537
+    a = starts[rng.integers(0, k, n)] + rng.integers(-64, 4096, n)
+    plan, _ = _histograms(card, a, rng.integers(0, 4, n), starts, ends, 4096,
+                          2241, 4, 6)
+    assert plan.kind == "global"
+
+
+@pytest.mark.parametrize("n", [1, 45878, 300000])
+@pytest.mark.parametrize("nb,ntb", [(2241, 4), (32768, 64)])
+def test_histograms_one_object_one_cell(rng, card, n, nb, ntb):
+    """Worst contention: every record in one object and one map cell."""
+    starts, ends = _table(rng, 20)
+    biggest = int(np.argmax(ends - starts))
+    a = np.full(n, starts[biggest])
+    _histograms(card, a, np.full(n, 3), starts, ends, 4096, nb, ntb, 15)
+
+
+@pytest.mark.parametrize("n", [1000, 45878])
+@pytest.mark.parametrize("where", ["below", "above", "8 MiB"])
+def test_hotness_maps_around_one_block(rng, card, n, where):
+    """Maps just within and just beyond one block's shared memory, and the
+    fallback's 8 MiB map: one cluster, owner tiles or global atomics."""
+    cells = _cells_per_block(card)
+    ntb, nb = {"below": (1, cells), "above": (1, cells + 1),
+               "8 MiB": (64, 32768)}[where]
+    starts, ends = _table(rng, 20)
+    a = 4096 + rng.integers(-64, (nb + 64) << 2, n)
+    _, plan = _histograms(card, a, rng.integers(0, ntb, n), starts, ends,
+                          4096, nb, ntb, 2)
+    want = "cluster" if where == "below" else \
+        ("tiles" if n == 1000 else "global")
+    assert plan.kind == want
+
+
+@pytest.mark.parametrize("n", [7, 65537])
+@pytest.mark.parametrize("nb,ntb", [(300, 4), (14529, 4), (32768, 64)])
+def test_histograms_drop_out_of_range_bins_and_blocks(rng, card, n, nb, ntb):
+    starts, ends = _table(rng, 20)
+    a = starts[rng.integers(0, 20, n)] + rng.integers(-8192, 8192, n)
+    a[::5] = -2**31
+    a[1::5] = 2**31 - 1
+    t = rng.integers(-3, ntb + 3, n)
+    _histograms(card, a, t, starts, ends, 6000, nb, ntb, 4)
+
+
+@pytest.mark.parametrize("nb,ntb", [(2241, 4), (32768, 64)])
+def test_histograms_largest_buffer(rng, card, nb, ntb):
+    """N = 2**24 - 1: several clusters (or global atomics) add into zeroed
+    outputs."""
+    n = 2**24 - 1
+    starts, ends = _table(rng, 20)
+    a = starts[rng.integers(0, 20, n)] + rng.integers(0, 4096, n)
+    plan_c, plan_h = _histograms(card, a, rng.integers(0, ntb, n), starts,
+                                 ends, 4096, nb, ntb, 6)
+    assert plan_c.fills and plan_h.fills

@@ -235,3 +235,31 @@ def test_library_name_tracks_its_source(tmp_path, monkeypatch):
     with open(tmp_path / "common.cuh", "a") as f:
         f.write("// edited\n")
     assert build._library_path("object_histogram") != before
+
+
+@pytest.mark.parametrize("edited", ["common.cuh", "records.cuh",
+                                    "object_histogram.cu",
+                                    "hotness_histogram.cu"])
+def test_library_name_tracks_every_header(tmp_path, monkeypatch, edited):
+    """An edited header renames the library of every kernel, so a kernel
+    that includes it is rebuilt; an edited source renames only its own."""
+    for f in build.CSRC.glob("*.cu*"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {name: build._library_path(name) for name in build.SIGNATURES}
+    with open(tmp_path / edited, "a") as f:
+        f.write("// edited\n")
+    changed = {name for name in build.SIGNATURES
+               if build._library_path(name) != before[name]}
+    assert changed == (set(build.SIGNATURES) if edited.endswith(".cuh")
+                       else {edited[:-3]})
+
+
+def test_every_included_header_is_hashed():
+    """Each header a source includes by a quoted name lies in ``csrc/``,
+    where the library name's hash reads every header."""
+    for name in build.SIGNATURES:
+        src = (build.CSRC / f"{name}.cu").read_text()
+        for line in src.splitlines():
+            if line.startswith('#include "'):
+                assert (build.CSRC / line.split('"')[1]).is_file(), line

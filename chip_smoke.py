@@ -53,11 +53,32 @@ non-zero and print no result):
                 ``torch.profiler``, with host spans around the
                 instrumenter's layers: where the host and device time go and
                 the device's idle share (a traced run, so its wall time
-                includes the tracing).
+                includes the tracing);
+  9. archs    — (run after phase 3) the analysis path, as phase 2, on
+                the six other architectures in bf16 compute: stablelm-1.6b,
+                gemma-7b and musicgen-large at full width and depth,
+                qwen3-32b and qwen2-vl-72b at full width with their depth
+                cut to keep the float32 weights under 60 GB, kimi-k2 at full
+                width with one MoE layer (384 experts, bf16);
+ 10. train    — (run after phase 9) three steps of ``make_train_step`` on
+                stablelm-1.6b at full width and depth (batch 2 x 64,
+                float32 weights and moments): finite loss, grad_norm > 0,
+                moved weights, step time and peak memory; then one float32
+                step of reduced stablelm-1.6b on the card against the same
+                step on the CPU;
+ 11. quickstart — (run last) ``repro_torch.launch.quickstart`` on reduced
+                and then full paper-gpt2: the eager half launches the
+                object-histogram kernel, the compiled half captures the
+                train step's device kernels (cuBLAS GEMMs and elementwise
+                kernels, not aten names), the roofline report has bytes and
+                FLOPs; and the capture's own cost, the profiled step against
+                the plain one.
 
-Then one JSON line of kernels, the card's name and power limit, and the
-result line.  Launch counts are reset just before each path runs and read
-just after; the comparisons of phases 4 and 6 run outside those windows.
+Every time and memory size of phases 9-11 is printed beside the card's
+name and power limit.  Then one JSON line of kernels, the card's name and
+power limit, and the result line.  Launch counts are reset just before
+each path runs and read just after; the comparisons of phases 4 and 6 run
+outside those windows.
 """
 
 from __future__ import annotations
@@ -79,6 +100,12 @@ FP32_FLOPS = 67e12              # H100 SXM float32 peak outside the tensor cores
 STEPS = 4
 SEED = 0
 DBRX_LAYERS = 4                 # of 40: 57 GB of float32 weights at width
+#: depth cuts of phase 9 (float32 weights under 60 GB; kimi-k2: one MoE
+#: layer, 38.8 GB of bf16 weights)
+ARCH_LAYERS = {"stablelm-1.6b": None, "gemma-7b": None,
+               "musicgen-large": None, "qwen3-32b": 24, "qwen2-vl-72b": 14,
+               "kimi-k2-1t-a32b": 1}
+CARD = ""                       # "name, power limit", set by main()
 
 
 def fail(msg: str) -> None:
@@ -100,7 +127,12 @@ from repro_torch.core.tools import LocatorTool             # noqa: E402
 from repro_torch.kernels import build, ops, ref            # noqa: E402
 from repro_torch.kernels import instrumented_matmul as im  # noqa: E402
 from repro_torch.launch import analyze                     # noqa: E402
-from repro_torch.models import forward                     # noqa: E402
+from repro_torch.core import capture                       # noqa: E402
+from repro_torch.launch import quickstart as qs             # noqa: E402
+from repro_torch.models import forward, init_params        # noqa: E402
+from repro_torch.train import OptConfig, make_train_step   # noqa: E402
+from repro_torch.train.optimizer import (init_opt_state,   # noqa: E402
+                                         tree_paths)
 
 
 def cuda_ms(fn, iters: int = 50) -> float:
@@ -372,31 +404,36 @@ FLUSH_BYTES = 256 << 20         # written between calls: five times the L2
 FLUSH_KERNEL = "bitwise_not"    # in the name of the flush's kernel
 
 
-def cold_ms(fn, flush, iters: int = 10):
+def cold_ms(fn, flush, iters: int = 10, tries: int = 3):
     """Device time per call of ``fn()`` with a cold L2: before each call
     ``flush()`` rewrites FLUSH_BYTES with a ``bitwise_not`` kernel.  Only
     ``fn``'s own device records count: the flush's are known by their
     kernel's name, and records that start before the first flush (late
-    ones from calls outside the window) are left out.  None when the
-    profiler did not record every flush or recorded nothing of ``fn``."""
+    ones from calls outside the window) are left out.  A window that did
+    not record every flush, or nothing of ``fn``, lost records and is taken
+    again, as in ``device_ms``; None when no window of ``tries`` was
+    whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    flushes = [e for e in dev if FLUSH_KERNEL in e.name]
-    if len(flushes) != iters:
-        return None
-    t0 = min(e.time_range.start for e in flushes)
-    us = sum(e.time_range.elapsed_us() for e in dev
-             if FLUSH_KERNEL not in e.name and e.time_range.start >= t0)
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        flushes = [e for e in dev if FLUSH_KERNEL in e.name]
+        if len(flushes) != iters:
+            continue
+        t0 = min(e.time_range.start for e in flushes)
+        us = sum(e.time_range.elapsed_us() for e in dev
+                 if FLUSH_KERNEL not in e.name and e.time_range.start >= t0)
+        if us > 0:
+            return us / iters / 1e3
+    return None
 
 
 def mm_bf16(x, w):
@@ -1096,7 +1133,239 @@ def phase_profile(cfg) -> None:
               flush=True)
 
 
+# ------------------------------------------------------------------ phase 9
+def phase_archs() -> dict:
+    """stablelm-1.6b, gemma-7b, musicgen-large, qwen3-32b, qwen2-vl-72b and
+    kimi-k2 on the analysis path (ARCH_LAYERS: depth cuts)."""
+    launches = {}
+    for arch, n_layers in ARCH_LAYERS.items():
+        cfg = configs.get(arch)
+        if n_layers is not None:
+            itemsize = torch.tensor([], dtype=getattr(
+                torch, cfg.param_dtype)).element_size()
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+            print(f"archs: {arch} depth cut to {n_layers} of "
+                  f"{configs.get(arch).n_layers} layers (at most "
+                  f"{cfg.n_params * itemsize / 1e9:.1f} GB of "
+                  f"{cfg.param_dtype} weights)", flush=True)
+        facts, params, x = drive(cfg, f"archs {cfg.family}")
+        print(f"archs {arch}: the times above on {CARD}", flush=True)
+        launches[arch] = facts["launches"]
+        del params, x
+        free_card()
+    return launches
+
+
+# ----------------------------------------------------------------- phase 10
+#: card against CPU, reduced float32, two steps at lr 1e-3 from step 1: the
+#: update of every weight leaf within this share of its norm on the CPU
+#: (float32 against float64 on the CPU: 3.3e-4 at most)
+UPDATE_RTOL = 1e-3
+
+
+def _sample(params) -> list:
+    """Copies of at most 4096 evenly strided elements of each weight leaf:
+    enough to see a leaf move, without a second copy of the weights."""
+    return [leaf.detach().flatten()[::max(1, leaf.numel() // 4096)].clone()
+            for _p, leaf in tree_paths(params)]
+
+
+def _train(cfg, device, steps, init_on="cpu", opt_cfg=None, sample=False):
+    """``steps`` train steps of ``cfg`` on ``device`` from weights seeded on
+    ``init_on`` and a seeded 2 x 64 batch: (the first weights on the CPU,
+    or with ``sample`` a sample of each leaf; the last weights; metrics per
+    step; seconds per step)."""
+    opt_cfg = opt_cfg or OptConfig()
+    params = _to(init_params(cfg, SEED, init_on), device)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    x = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                      dtype=torch.int32).to(device)
+    labels = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           dtype=torch.int32).to(device)
+    step = make_train_step(cfg, opt_cfg, microbatches=1)
+    state = init_opt_state(params, opt_cfg)
+    first = _sample(params) if sample else _to(params, "cpu")
+    metrics, secs = [], []
+    for _ in range(steps):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state,
+                                {"inputs": x, "labels": labels})
+        m = {k: float(v) for k, v in m.items()}
+        secs.append(time.perf_counter() - t0)
+        metrics.append(m)
+    return first, params, metrics, secs
+
+
+def phase_train() -> None:
+    cfg = configs.get("stablelm-1.6b")
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    first, last, metrics, secs = _train(cfg, "cuda", 3, init_on="cuda",
+                                        sample=True)
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(a, b) for a, b in zip(first, _sample(last)))
+    n_leaves = len(first)
+    del first, last
+    free_card()
+    losses = [m["loss"] for m in metrics]
+    print(f"train: {cfg.name} full width and depth ({cfg.n_params / 1e9:.2f} "
+          f"B params, float32 weights and moments, bf16 compute), 3 steps "
+          f"of batch 2 x 64: loss {losses}, grad_norm "
+          f"{[m['grad_norm'] for m in metrics]}, lr "
+          f"{[m['lr'] for m in metrics]}; {moved} of {n_leaves} weight "
+          f"leaves moved (a sample of each); step times "
+          f"{[round(t * 1e3, 1) for t in secs]} ms (the first includes "
+          f"warm-up), peak device memory of the steps {peak / 1e9:.2f} GB, "
+          f"on {CARD}", flush=True)
+    if not all(np.isfinite(losses)) or not all(m["grad_norm"] > 0
+                                               for m in metrics):
+        fail(f"train: loss {losses} or grad_norm not finite and positive")
+    if moved == 0:
+        fail("train: no weight moved")
+    # two float32 steps of the reduced model, card against CPU: both losses
+    # (the second reads the updated weights) and every leaf's update
+    small = configs.reduced(cfg)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1)
+    w0, card_w, card, _s = _train(small, "cuda", 2, opt_cfg=opt_cfg)
+    _w, cpu_w, cpu, _s = _train(small, "cpu", 2, opt_cfg=opt_cfg)
+    rel = [abs(c["loss"] / h["loss"] - 1) for c, h in zip(card, cpu)]
+    worst, worst_abs = 0.0, 0.0
+    for (path, w), (_q, got), (_r, want) in zip(
+            tree_paths(w0), tree_paths(card_w), tree_paths(cpu_w)):
+        got = got.cpu().double()
+        want, w = want.double(), w.double()
+        diff, update = float((got - want).norm()), float((want - w).norm())
+        worst = max(worst, diff / update if update else
+                    (0.0 if diff == 0 else float("inf")))
+        worst_abs = max(worst_abs, float((got - want).abs().max()))
+    print(f"train: reduced {cfg.name} two float32 steps at lr 1e-3, loss "
+          f"card {[c['loss'] for c in card]} cpu {[h['loss'] for h in cpu]} "
+          f"(relative {max(rel):.3e}), grad_norm card "
+          f"{[c['grad_norm'] for c in card]} cpu "
+          f"{[h['grad_norm'] for h in cpu]}; weights after both steps: "
+          f"largest |update(card) - update(cpu)| / |update(cpu)| of a leaf "
+          f"{worst:.3e} (limit {UPDATE_RTOL:g}), largest element "
+          f"difference {worst_abs:.3e}", flush=True)
+    if max(rel) > 1e-4:
+        fail(f"train: reduced loss card vs cpu differs by {max(rel):.3e}")
+    if not worst <= UPDATE_RTOL:
+        fail(f"train: reduced weights' update card vs cpu differs by "
+             f"{worst:.3e} of its norm")
+
+
+# ----------------------------------------------------------------- phase 11
+def phase_quickstart() -> dict:
+    """The port's quickstart on the card, reduced then full paper-gpt2;
+    returns the object-histogram launches of each eager half."""
+    out = {}
+    for label, cfg in (("reduced", configs.reduced(
+            configs.get("paper-gpt2"))), ("full", configs.get("paper-gpt2"))):
+        buffers = []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        reports, artifact, stats = qs.run(
+            cfg, "cuda", observe=lambda s: s.handler.subscribe(
+                buffers.append, kinds=("trace_buffer",)))
+        torch.cuda.synchronize()
+        launched = dict(ops.launches)
+        kf = reports["kernel_freq"]
+        names = [m["opcode"] for m in stats.kernel_meta.values()]
+        print(f"quickstart {label} paper-gpt2 ({cfg.n_params / 1e6:.1f} M "
+              f"params): eager half {len(buffers)} trace buffers, launches "
+              f"{launched}; compiled half: total_invocations "
+              f"{kf['total_invocations']}, distinct {kf['distinct_kernels']}, "
+              f"{len(names)} kernel records, warnings {stats.warnings}, "
+              f"top {[(n[:60], c) for n, c in kf['top'][:5]]}; FLOPs "
+              f"{stats.flops:.4g}, bytes {stats.hbm_bytes:.4g}; timeline "
+              f"peak {reports['timeline']['peak_bytes']}", flush=True)
+        if launched["object_histogram"] != len(buffers) or not buffers \
+                or launched["trace_aggregate"] \
+                or launched["hotness_histogram"]:
+            fail(f"quickstart {label}: launches {launched} for "
+                 f"{len(buffers)} trace buffers")
+        if artifact.device != "cuda" or not names \
+                or any(n.startswith("aten::") for n in names) \
+                or not any("gemm" in n.lower() for n in names) \
+                or not any("elementwise" in n.lower() for n in names):
+            fail(f"quickstart {label}: captured kernel names are not the "
+                 f"device's cuBLAS GEMMs and elementwise kernels: "
+                 f"{sorted(set(names))[:20]}")
+        if kf["total_invocations"] != sum(stats.kernel_counts.values()) * 5:
+            fail(f"quickstart {label}: kernel_freq total "
+                 f"{kf['total_invocations']} is not 5 x the launches")
+        with pasta.Session(tools="roofline", torch_device="cuda",
+                           name="roofline") as session:
+            session.capture_compiled(
+                artifact, label="train_step", steps=5,
+                cost_analysis={"flops": stats.flops * 5})
+        rl = session.reports()["roofline"]
+        print(f"quickstart {label} roofline (H100 data-sheet peaks, 5 "
+              f"steps): {rl.data}", flush=True)
+        if not rl["hbm_bytes"] > 0 or not rl["flops"] > 0:
+            fail(f"quickstart {label}: roofline without bytes or FLOPs "
+                 f"{rl.data}")
+        out[f"quickstart paper-gpt2 {label}"] = launched["object_histogram"]
+        del reports, artifact
+        free_card()
+    # the capture's own cost on full paper-gpt2: the plain step against
+    # the profiled one, on the same weights and batch
+    cfg = configs.get("paper-gpt2")
+    params = init_params(cfg, SEED, "cuda")
+    opt_cfg = OptConfig()
+    state = init_opt_state(params, opt_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                              dtype=torch.int32, device="cuda")
+             for k in ("inputs", "labels")}
+    step = make_train_step(cfg, opt_cfg, microbatches=1)
+    plain = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t0)
+    profiled = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        artifact = capture.capture_step(step, params, state, batch)
+        t1 = time.perf_counter()
+        capture.analyze(artifact)
+        profiled.append((artifact.seconds, t1 - t0,
+                         time.perf_counter() - t1, artifact.lost,
+                         len(artifact.launches)))
+    plain_s = float(np.median(plain[1:]))
+    call_s = min(p[0] for p in profiled)
+    print(f"quickstart capture cost, full paper-gpt2 train step: plain "
+          f"{plain_s * 1e3:.2f} ms (median of 3 after one warm-up), "
+          f"profiled call {call_s * 1e3:.2f} ms ({call_s / plain_s:.1f}x), "
+          f"capture with profiler teardown "
+          f"{min(p[1] for p in profiled) * 1e3:.1f} ms, analyze "
+          f"{min(p[2] for p in profiled) * 1e3:.2f} ms; (lost, recorded) "
+          f"device operations per capture {[p[3:] for p in profiled]}; on "
+          f"{CARD}",
+          flush=True)
+    del params, state, artifact
+    free_card()
+    return out
+
+
+def profiler_probe(when: str) -> None:
+    """Print how many of one fill's and one negation's two device records
+    a profiler session keeps (a short session late in this process has
+    been seen to keep fewer: PERF.md section 7)."""
+    n = len(device_ops(lambda: torch.ones(1 << 20, device="cuda").neg_()))
+    print(f"profiler {when}: one fill and one negation record {n} device "
+          "operations (2 expected)", flush=True)
+
+
 def main() -> None:
+    global CARD
+    CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
     # float32 stays float32 on the card (cuDNN would default to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1104,6 +1373,7 @@ def main() -> None:
     phase_build()
     main_run, proj = phase_main()
     families = phase_families()
+    profiler_probe("before phase 4")
     in_kernel = phase_in_kernel(proj)
     del proj
     free_card()
@@ -1112,6 +1382,16 @@ def main() -> None:
     phase_cpu()
     phase_profile(configs.get("glm4-9b"))
     phase_profile(configs.get("zamba2-7b"))
+    # phases 9-11 run after the phases timed by the profiler; their
+    # launches join the fused kernel's and the object histogram's paths
+    rows = {r["name"]: r for r in kernels}
+    rows["trace_aggregate"]["launches_by_path"].update(phase_archs())
+    phase_train()
+    profiler_probe("before the captures")
+    rows["object_histogram"]["launches_by_path"].update(phase_quickstart())
+    profiler_probe("after the captures")
+    for name in ("trace_aggregate", "object_histogram"):
+        rows[name]["launches"] = sum(rows[name]["launches_by_path"].values())
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,5 +1,5 @@
 """Architecture config registry: ``--arch <id>`` resolution + reduced
-(smoke-test) variants, for the architectures the port runs so far."""
+(smoke-test) variants: the reference's twelve architectures."""
 
 from __future__ import annotations
 
@@ -10,9 +10,15 @@ from repro_torch.models.config import ModelConfig
 
 _ARCHS = {
     "mamba2-2.7b": "mamba2_2_7b",
+    "stablelm-1.6b": "stablelm_1_6b",
     "glm4-9b": "glm4_9b",
+    "gemma-7b": "gemma_7b",
+    "qwen3-32b": "qwen3_32b",
     "zamba2-7b": "zamba2_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "dbrx-132b": "dbrx_132b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "musicgen-large": "musicgen_large",
     "paper-gpt2": "paper_gpt2",
     "paper-bert": "paper_bert",
 }

@@ -1,0 +1,9 @@
+"""gemma-7b — GeGLU, head_dim=256, tied embeddings [arXiv:2403.08295]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-7b", family="dense",
+    n_layers=28, d_model=3072, n_heads=16, n_kv_heads=16, head_dim=256,
+    d_ff=24576, vocab_size=256000, mlp="geglu", rope_theta=1e4,
+    tie_embeddings=True,
+)

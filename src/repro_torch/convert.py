@@ -4,8 +4,9 @@ The reference's ``init_params`` returns a nested dict of JAX arrays; moved
 to numpy (``jax.tree.map(np.asarray, params)``) it becomes a tree of numpy
 leaves, which :func:`params_from_numpy` turns into the port's tree: the
 same nested-dict layout (stacked ``layers``; the hybrid's ``groups``,
-``tail`` and unstacked ``shared``; the moe's float32 ``router``), the same
-stacked leaves, the same dtypes.
+``tail`` and unstacked ``shared``; the moe's float32 ``router``; qk-norm's
+``q_norm`` / ``k_norm``; no ``embed`` under the ``embed`` frontend stub),
+the same stacked leaves, the same dtypes.
 """
 
 from __future__ import annotations

@@ -10,9 +10,11 @@ Public surface (``import repro_torch.core as pasta``):
   * modules:     EventHandler → EventProcessor → tool collection (owned by a
                  Session; still composable by hand)
   * memory:      MemoryPool (caching-allocator model)
+  * artifacts:   capture (profiled-step capture, the counterpart of the
+                 reference's HLO walker), tools.roofline
 """
 
-from .annotate import start, end, region, current_region
+from .annotate import start, end, region, GridIdFilter, current_region
 from .events import Event, EventBatch, EventKind, EventRing, take_seqs
 from .handler import EventHandler
 from .pool import MemoryPool, MemoryObject, TensorHandle, CHUNK_ALIGN
@@ -20,6 +22,7 @@ from .processor import (EventProcessor, analyze_access_trace,
                         analyze_hotness_trace, analyze_trace_fused)
 from .session import (Session, Report, Reports, active_session,
                       current_session, current_handler, root_session)
+from . import capture
 from . import tools
 from .tools import (PastaTool, KernelFrequencyTool, WorkingSetTool,
                     HotnessTool, MemoryTimelineTool, LocatorTool,
@@ -29,11 +32,12 @@ from .tools import offload
 __all__ = [
     "Session", "Report", "Reports", "active_session", "current_session",
     "current_handler", "root_session",
-    "start", "end", "region", "current_region",
+    "start", "end", "region", "GridIdFilter", "current_region",
     "Event", "EventBatch", "EventKind", "EventRing", "take_seqs",
     "EventHandler", "MemoryPool", "MemoryObject", "TensorHandle",
     "CHUNK_ALIGN", "EventProcessor", "analyze_access_trace",
-    "analyze_hotness_trace", "analyze_trace_fused", "tools", "PastaTool",
+    "analyze_hotness_trace", "analyze_trace_fused", "capture", "tools",
+    "PastaTool",
     "KernelFrequencyTool", "WorkingSetTool", "HotnessTool",
     "MemoryTimelineTool", "LocatorTool", "TOOL_REGISTRY",
     "register", "parse_tool_spec", "resolve_tools", "offload",

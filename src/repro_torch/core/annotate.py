@@ -18,6 +18,7 @@ open, enabling layer-level / forward-vs-backward / custom-range breakdowns.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 
 _state = threading.local()
@@ -70,3 +71,22 @@ def region(name: str):
         yield
     finally:
         end(name)
+
+
+class GridIdFilter:
+    """Restrict analysis to a subset of kernel launches.
+
+    Reads ``START_GRID_ID`` / ``END_GRID_ID`` (inclusive range), matching the
+    paper's environment-variable interface for standard GPU applications.
+    """
+
+    def __init__(self, start_id: int | None = None, end_id: int | None = None):
+        env_s = os.environ.get("START_GRID_ID")
+        env_e = os.environ.get("END_GRID_ID")
+        self.start_id = start_id if start_id is not None else (
+            int(env_s) if env_s else 0)
+        self.end_id = end_id if end_id is not None else (
+            int(env_e) if env_e else 2 ** 62)
+
+    def __call__(self, grid_id: int) -> bool:
+        return self.start_id <= grid_id <= self.end_id

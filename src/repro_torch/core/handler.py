@@ -30,7 +30,8 @@ from typing import Callable, Iterable
 
 import numpy as np
 
-from .annotate import current_region
+from .annotate import GridIdFilter, current_region
+from . import capture as capture_mod
 from . import events as events_mod
 from .events import (Event, EventBatch, EventKind, EventRing, KIND_CODE,
                      KIND_LIST)
@@ -43,6 +44,8 @@ class EventHandler:
         self._batch_subs: list = []                        # batch fns
         self.enabled = True
         self.device = device
+        self.grid_filter = GridIdFilter()
+        self._grid_id = 0
         self._step = -1
         self.buffer_capacity = buffer_capacity
         self._buffered = buffered
@@ -250,3 +253,44 @@ class EventHandler:
             return
         self.emit_row(EventKind.TRACE_BUFFER, name=name,
                       attrs={"records": records, **attrs})
+
+    # ------------------------------------------------ compiled-step capture
+    def capture_compiled(self, artifact_or_fn, label: str = "",
+                         default_trip: int = 1, steps: int = 1,
+                         cost_analysis: dict | None = None):
+        """Emit kernel/collective events for a captured step: a
+        :class:`~repro_torch.core.capture.StepArtifact`, or a no-argument
+        callable, which is captured first.  Returns the
+        :class:`~repro_torch.core.capture.CaptureStats` rollup."""
+        artifact = artifact_or_fn
+        if callable(artifact_or_fn):
+            artifact = capture_mod.capture_step(artifact_or_fn)
+        t0 = time.perf_counter()
+        stats = capture_mod.analyze(artifact, default_trip=default_trip)
+        parse_s = time.perf_counter() - t0
+        self.emit(Event(EventKind.COMPILE, name=label,
+                        attrs={"parse_s": parse_s,
+                               "cost_analysis": cost_analysis or {}}))
+        for kname, count in stats.kernel_counts.items():
+            gid = self._grid_id
+            self._grid_id += 1
+            if not self.grid_filter(gid):
+                continue
+            meta = stats.kernel_meta.get(kname, {})
+            self.emit(Event(EventKind.KERNEL_LAUNCH, name=kname,
+                            attrs={"count": count * steps, "grid_id": gid,
+                                   "label": label,
+                                   "op_name": meta.get("op_name", ""),
+                                   "bytes": meta.get("bytes", 0)}))
+        for inst in stats.collective_instances:
+            self.emit(Event(EventKind.COLLECTIVE, name=inst["name"],
+                            size=int(inst["bytes"]),
+                            attrs={"opcode": inst["opcode"],
+                                   "mult": inst["mult"] * steps,
+                                   "group_size": inst["group_size"],
+                                   "label": label,
+                                   "overlapped": inst["overlapped"],
+                                   "exposed_bytes": inst["exposed_bytes"],
+                                   "hidden_s": inst["hidden_s"],
+                                   "wire_bytes": inst["wire_bytes"]}))
+        return stats

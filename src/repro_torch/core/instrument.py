@@ -17,12 +17,14 @@ sampled every ``stride`` bytes of each touched tensor) that the event
 processor aggregates on device (Fig. 2b) or host (Fig. 2a baseline).
 
 Model code calls :func:`op_hook` at operator boundaries; it is a no-op while
-``torch.compile`` or FX traces the model and when no instrumenter is
-installed, so the hot path costs one global check.
+``torch.compile`` or FX traces the model, while a compiled step is captured
+(:func:`capturing`) and when no instrumenter is installed, so the hot path
+costs one global check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import weakref
 
@@ -34,6 +36,7 @@ from .events import Event, EventKind
 from .pool import MemoryPool
 
 ACTIVE: "EagerInstrumenter | None" = None
+_capture_depth = 0
 
 
 class EagerInstrumenter:
@@ -130,11 +133,28 @@ class EagerInstrumenter:
 
 def tracing() -> bool:
     """True while ``torch.compile`` (dynamo) or FX symbolic tracing runs the
-    model: the tensors seen then are proxies, not real allocations."""
+    model (the tensors seen then are proxies, not real allocations), and
+    while a compiled step is captured."""
+    if _capture_depth:
+        return True
     fx = torch.fx._symbolic_trace
     # newer torch splits symbolic tracing out of the (warning) catch-all
     fx_tracing = getattr(fx, "is_fx_symbolic_tracing", fx.is_fx_tracing)
     return torch.compiler.is_compiling() or fx_tracing()
+
+
+@contextlib.contextmanager
+def capturing():
+    """The span of a compiled-step capture
+    (:func:`repro_torch.core.capture.capture_step`).  Its operators belong
+    to the compiled tier, which the reference traces and so never hooks:
+    ``op_hook`` stays silent inside."""
+    global _capture_depth
+    _capture_depth += 1
+    try:
+        yield
+    finally:
+        _capture_depth -= 1
 
 
 def op_hook(name: str, inputs, outputs) -> None:

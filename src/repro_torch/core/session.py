@@ -282,6 +282,14 @@ class Session:
             self._pool = MemoryPool(self.handler)
         return self._pool
 
+    def capture_compiled(self, artifact_or_fn, label: str = "",
+                         default_trip: int = 1, steps: int = 1,
+                         cost_analysis: dict | None = None):
+        """Compiled-step capture through this session's handler."""
+        return self.handler.capture_compiled(
+            artifact_or_fn, label=label, default_trip=default_trip,
+            steps=steps, cost_analysis=cost_analysis)
+
     def add_tool(self, tool) -> None:
         if self.processor is None:
             raise RuntimeError("bare (root) session has no "

@@ -15,8 +15,10 @@ from .workingset import WorkingSetTool
 from .hotness import HotnessTool
 from .timeline import MemoryTimelineTool
 from .locator import LocatorTool
+from .roofline import RooflineTool
 from . import offload
 
 __all__ = ["PastaTool", "KernelFrequencyTool", "WorkingSetTool",
-           "HotnessTool", "MemoryTimelineTool", "LocatorTool", "offload",
+           "HotnessTool", "MemoryTimelineTool", "LocatorTool",
+           "RooflineTool", "offload",
            "TOOL_REGISTRY", "register", "parse_tool_spec", "resolve_tools"]

@@ -13,9 +13,10 @@ hand-written CUDA kernels (the fused counts+hotness kernel when it fits).
     PYTHONPATH=src python -m repro_torch.launch.analyze [--arch glm4-9b]
         [--steps 4] [--reduced] [--device cuda]
 
-``--arch`` is any architecture of :mod:`repro_torch.configs`: dense
-(glm4-9b, paper-gpt2, paper-bert), ssm (mamba2-2.7b), hybrid (zamba2-7b)
-or moe (dbrx-132b).
+``--arch`` is any of the twelve architectures of
+:mod:`repro_torch.configs`.  Those with ``frontend="embed"`` (qwen2-vl-72b,
+musicgen-large) take (2, 64, d_model) float32 embeddings in place of
+tokens, as the example feeds them.
 """
 
 from __future__ import annotations
@@ -55,9 +56,13 @@ def hotness_config(cfg: ModelConfig, steps: int) -> dict:
 
 def make_inputs(cfg: ModelConfig, seed: int, device):
     """Random parameters (from ``seed``) and a (2, 64) int32 token batch
-    (from ``seed + 1``), the example's shapes."""
+    (from ``seed + 1``), the example's shapes; (2, 64, d_model) float32
+    standard-normal embeddings under the ``embed`` frontend."""
     params = init_params(cfg, seed, device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if cfg.frontend == "embed":
+        return params, torch.randn((2, 64, cfg.d_model), generator=gen,
+                                   dtype=torch.float32, device=device)
     tokens = torch.randint(0, max(cfg.vocab_size, 2), (2, 64), generator=gen,
                            dtype=torch.int32, device=device)
     return params, tokens

@@ -1,7 +1,8 @@
-"""Decoder LM of the dense, moe, ssm and hybrid families, without a KV
-cache.
+"""Decoder LM of every family of the reference, without a KV cache.
 
-  * dense  — GQA attention + GLU MLP blocks;
+  * dense / vlm / audio — GQA attention + GLU MLP blocks (vlm and audio
+    differ only in the stubbed modality frontend, ``frontend="embed"``:
+    (B, S, d) inputs and no ``embed`` parameter, and M-RoPE);
   * moe    — attention + sort-based capacity MoE blocks;
   * ssm    — Mamba2 (SSD) blocks, attention-free;
   * hybrid — Mamba2 backbone with ONE weight-shared transformer block applied
@@ -33,16 +34,18 @@ from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
+ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
+FRONTENDS = ("none", "embed")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations outside the ported families."""
-    if cfg.family not in FAMILIES or cfg.frontend != "none" or cfg.m_rope \
-            or cfg.qk_norm:
+    """Raise for a family or a frontend that the reference does not have."""
+    if cfg.family not in FAMILIES or cfg.frontend not in FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.name}: only the {', '.join(FAMILIES)} families with token "
-            "inputs, plain RoPE and no qk-norm are ported")
+            f"{cfg.name}: family {cfg.family!r} / frontend {cfg.frontend!r}; "
+            f"the families are {', '.join(FAMILIES)} and the frontends "
+            f"{', '.join(FRONTENDS)}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
@@ -52,9 +55,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     dt = L.torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
-    p: dict = {"embed": torch.randn((v, d), generator=gen, dtype=dt,
-                                    device=device).mul_(0.02)}
-    if not cfg.tie_embeddings:
+    p: dict = {}
+    if cfg.frontend == "none":
+        p["embed"] = torch.randn((v, d), generator=gen, dtype=dt,
+                                 device=device).mul_(0.02)
+    if not cfg.tie_embeddings and v:
         p["lm_head"] = torch.randn((d, v), generator=gen, dtype=dt,
                                    device=device).mul_(1.0 / math.sqrt(d))
     p["final_norm"] = torch.zeros((d,), dtype=dt, device=device)
@@ -66,7 +71,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         return {"ln": zeros(*lead, d),
                 "mamba": M.init_mamba2(cfg, lead, gen, dt, device)}
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         p["layers"] = {"attn": L.init_attention(cfg, (n,), gen, dt, device),
                        "ln1": zeros(n, d), "ln2": zeros(n, d)}
         if cfg.family == "moe":
@@ -125,25 +130,31 @@ def _mamba_block(blk, h, cfg):
 
 
 def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig):
-    """inputs: (B,S) int32 tokens.  Returns (logits, None) — the second
-    slot is the reference's cache, which this path never builds."""
+    """inputs: (B,S) int32 tokens, or (B,S,d) embeddings (the ``embed``
+    frontend stub).  Returns (logits, None) — the second slot is the
+    reference's cache, which this path never builds."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg.dtype)
-    h = params["embed"].to(dt)[inputs]
-    op_hook("embed.lookup", (inputs, params["embed"]), (h,))
+    if inputs.dim() == 2 and cfg.frontend == "none":
+        h = params["embed"].to(dt)[inputs]
+        op_hook("embed.lookup", (inputs, params["embed"]), (h,))
+    else:
+        h = inputs.to(dt)
     b, s = h.shape[0], h.shape[1]
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         h, new_cache = _run_stacked_attn(params, h, cfg, positions)
     elif cfg.family == "ssm":
         h, new_cache = _run_stacked_ssm(params, h, cfg)
     else:
         h, new_cache = _run_hybrid(params, h, cfg, positions)
     h = L.rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and "embed" in params:
         logits = torch.einsum("bsd,vd->bsv", h, params["embed"].to(dt))
-    else:
+    elif "lm_head" in params:
         logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"].to(dt))
+    else:
+        logits = h
     op_hook("lm_head", (h,), (logits,))
     return logits, new_cache
 
@@ -182,3 +193,14 @@ def _run_hybrid(params, h, cfg, positions):
         for ti in range(n_t):
             h, _ = _mamba_block(_tree_at(params["tail"], ti), h, cfg)
     return h, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4):
+    """Mean next-token CE in f32 (+ z-loss for logit drift)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    zl = z_loss * torch.square(lse)
+    return (nll + zl).mean(), {"ce": nll.mean(), "z": zl.mean()}

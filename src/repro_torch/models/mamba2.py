@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.instrument import op_hook
 from .config import ModelConfig
-from .layers import normal_init, rmsnorm
+from .layers import _silu, normal_init, rmsnorm
 
 
 def init_mamba2(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
@@ -69,7 +69,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor):
     xp = torch.cat([pad, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
             for i in range(width))
-    return F.silu(y), xp[:, -(width - 1):, :]
+    return _silu(y), xp[:, -(width - 1):, :]
 
 
 def _segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -193,7 +193,7 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(b, s, nh * pd).to(dt_)
 
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.rmsnorm_eps)
+    y = rmsnorm(y * _silu(z), p["norm"], cfg.rmsnorm_eps)
     op_hook("mamba.ssd", (xs, Bv, Cv, dt_raw), (y,))
     out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(dt_))
     op_hook("mamba.out_proj", (y, p["w_out"]), (out,))

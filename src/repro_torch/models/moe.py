@@ -19,11 +19,10 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.instrument import op_hook
 from .config import ModelConfig
-from .layers import normal_init
+from .layers import _silu, normal_init
 
 
 def init_moe(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
@@ -111,7 +110,7 @@ def moe_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     # ---- expert SwiGLU (block-diagonal over experts) ------------------------
     gt = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt))
     u = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
-    h = F.silu(gt) * u
+    h = _silu(gt) * u
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
     op_hook("moe.experts", (xe, p["w_gate"], p["w_up"], p["w_down"]), (ye,))
 
@@ -121,7 +120,7 @@ def moe_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     if cfg.n_shared_experts:
         sg = torch.einsum("gtd,df->gtf", xt, p["ws_gate"].to(dt))
         su = torch.einsum("gtd,df->gtf", xt, p["ws_up"].to(dt))
-        y = y + torch.einsum("gtf,fd->gtd", F.silu(sg) * su,
+        y = y + torch.einsum("gtf,fd->gtd", _silu(sg) * su,
                              p["ws_down"].to(dt))
 
     # load-balance aux loss (Switch-style)

@@ -1,6 +1,7 @@
 """Card-only tests of the port (marker ``cuda``): each CUDA kernel against
-its plain version, and the analysis path of each model family on the card
-against the CPU.
+its plain version, the analysis path of each model family on the card
+against the CPU, the compiled-step capture of device kernels, and the
+train step on the card against the CPU.
 
 They import neither ``jax`` nor the JAX package, so they run where only
 PyTorch is installed (``--noconftest`` skips ``tests/conftest.py``, which
@@ -20,7 +21,11 @@ from repro_torch.core import events as tevents
 from repro_torch.core import session as tsession
 from repro_torch.kernels import instrumented_matmul as im
 from repro_torch.kernels import ops, ref
+from repro_torch.core import capture
 from repro_torch.launch import analyze
+from repro_torch.models import init_params
+from repro_torch.train import OptConfig, make_train_step
+from repro_torch.train.optimizer import init_opt_state
 
 pytestmark = pytest.mark.cuda
 
@@ -228,6 +233,55 @@ def test_analyze_on_the_card_equals_the_cpu(card, arch):
     assert got.data == want.data
     assert ops.launches["trace_aggregate"] == len(buffers) > 0
     assert logits.device.type == "cuda" and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma-7b", "qwen3-32b",
+                                  "qwen2-vl-72b", "kimi-k2-1t-a32b",
+                                  "musicgen-large"])
+def test_analyze_new_archs_on_the_card_equals_the_cpu(card, arch):
+    """stablelm-1.6b, gemma-7b, qwen3-32b, qwen2-vl-72b, kimi-k2 and
+    musicgen-large, reduced: the card's reports equal the CPU's through
+    the fused kernel."""
+    test_analyze_on_the_card_equals_the_cpu(card, arch)
+
+
+def test_capture_records_device_kernels(card):
+    """A product captured on the card: its records are device kernels (a
+    GEMM), not aten names, and its FLOPs are exact."""
+    x = torch.randn((256, 256), device=card)
+    stats = capture.analyze(capture.capture_step(lambda a: a @ a, x))
+    names = [m["opcode"] for m in stats.kernel_meta.values()]
+    assert names and not any(n.startswith("aten::") for n in names)
+    assert any("gemm" in n.lower() for n in names)
+    assert stats.flops == 2 * 256 ** 3
+    assert stats.hbm_bytes == 3 * 256 * 256 * 4
+
+
+def test_train_step_on_the_card_equals_the_cpu(card):
+    """One float32 step of reduced paper-gpt2 (TF32 off) from the same
+    weights and batch: loss and grad_norm within 1e-5 relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.reduced(configs.get("paper-gpt2"))
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                              dtype=torch.int32) for k in ("inputs",
+                                                           "labels")}
+    out = []
+    for dev in ("cpu", card):
+        params = _to_device(init_params(cfg, 0, "cpu"), dev)
+        step = make_train_step(cfg, OptConfig(), microbatches=2)
+        _p, _s, m = step(params, init_opt_state(params, OptConfig()),
+                         {k: v.to(dev) for k, v in batch.items()})
+        out.append({k: float(v) for k, v in m.items()})
+    assert out[1]["loss"] == pytest.approx(out[0]["loss"], rel=1e-5)
+    assert out[1]["grad_norm"] == pytest.approx(out[0]["grad_norm"],
+                                                rel=1e-5)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 def _histograms(card, a, t, starts, ends, base, nb, ntb, shift):

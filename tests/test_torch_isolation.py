@@ -37,7 +37,13 @@ PORTED = ("repro_torch.kernels.instrumented_matmul",
           "repro_torch.core.tools.timeline", "repro_torch.models.mamba2",
           "repro_torch.models.moe", "repro_torch.configs.zamba2_7b",
           "repro_torch.configs.mamba2_2_7b", "repro_torch.configs.dbrx_132b",
-          "repro_torch.launch.analyze", "repro_torch.kernels.ops")
+          "repro_torch.launch.analyze", "repro_torch.kernels.ops",
+          "repro_torch.train", "repro_torch.train.trainer",
+          "repro_torch.train.optimizer", "repro_torch.train.data",
+          "repro_torch.core.capture", "repro_torch.core.tools.roofline",
+          "repro_torch.launch.quickstart", "repro_torch.configs.qwen3_32b",
+          "repro_torch.configs.kimi_k2_1t_a32b",
+          "repro_torch.configs.musicgen_large")
 
 
 @pytest.fixture(autouse=True)
@@ -70,3 +76,14 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.trace_aggregate(starts, [0.0], starts, starts + 512, 2 << 20,
                             8, 2, 1.0)
+
+
+def test_quickstart_defaults_to_the_card():
+    """``launch.quickstart.run`` without ``device=`` makes its weights on
+    CUDA: it raises here rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the quickstart would run")
+    import repro_torch.configs as configs
+    from repro_torch.launch import quickstart
+    with pytest.raises((RuntimeError, AssertionError)):
+        quickstart.run(configs.reduced(configs.get("paper-gpt2")))

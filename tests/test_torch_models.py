@@ -86,9 +86,13 @@ def test_config_registry_matches_reference():
         assert TC.get(arch).n_params == RC.get(arch).n_params
 
 
-@pytest.mark.parametrize("change", [{"family": "vlm"}, {"family": "audio"},
-                                    {"qk_norm": True}, {"m_rope": True}])
+@pytest.mark.parametrize("change", [{"family": "encdec"},
+                                    {"family": "retnet"},
+                                    {"frontend": "conv"},
+                                    {"frontend": "tokens"}])
 def test_unported_families_raise(change):
+    """A family or a frontend that the reference does not have is refused
+    (the reference's are in repro.models.config.ModelConfig)."""
     cfg = dataclasses.replace(TC.reduced(TC.get("glm4-9b")), **change)
     with pytest.raises(NotImplementedError):
         init_params(cfg, device="cpu")

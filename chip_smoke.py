@@ -72,9 +72,24 @@ non-zero and print no result):
                 train step's device kernels (cuBLAS GEMMs and elementwise
                 kernels, not aten names), the roofline report has bytes and
                 FLOPs; and the capture's own cost, the profiled step against
-                the plain one.
+                the plain one;
+ 12. serving  — (run after phase 11) ``repro_torch.launch.serve`` on
+                glm4-9b at full width and depth with the example's traffic
+                (8 requests at 2 req/s on 4 slots, a 16-token shared
+                prefix, 24 new tokens at temperature 0.8): every request
+                finishes, prefix hits, no bytes copied, only the prefix
+                store holds blocks after the drain, the ``serving`` and
+                ``kernel_freq`` reports are there and the latter names
+                device kernels; the same trace at rate 0 twice gives the
+                same tokens; one 12280-token prompt (prefill in the
+                blocked attention, decodes over a 12k paged window), its
+                layer-0 blocked attention held against the dense one on
+                one KV-head group; zamba2-7b at full width and depth (4
+                requests, 2 slots, the slot pool); then reduced paper-gpt2
+                (paged), mamba2-2.7b, zamba2-7b and dbrx-132b in float32,
+                the card's tokens against the CPU's.
 
-Every time and memory size of phases 9-11 is printed beside the card's
+Every time and memory size of phases 9-12 is printed beside the card's
 name and power limit.  Then one JSON line of kernels, the card's name and
 power limit, and the result line.  Launch counts are reset just before
 each path runs and read just after; the comparisons of phases 4 and 6 run
@@ -129,6 +144,9 @@ from repro_torch.kernels import instrumented_matmul as im  # noqa: E402
 from repro_torch.launch import analyze                     # noqa: E402
 from repro_torch.core import capture                       # noqa: E402
 from repro_torch.launch import quickstart as qs             # noqa: E402
+from repro_torch.launch import serve                       # noqa: E402
+from repro_torch.models import layers                      # noqa: E402
+from repro_torch.serve import SamplingParams, ServeEngine  # noqa: E402
 from repro_torch.models import forward, init_params        # noqa: E402
 from repro_torch.train import OptConfig, make_train_step   # noqa: E402
 from repro_torch.train.optimizer import (init_opt_state,   # noqa: E402
@@ -1352,6 +1370,243 @@ def phase_quickstart() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 12
+#: the example's traffic (examples/serve_lm.py) without --reduced
+SERVE_EXAMPLE = ["--num-requests", "8", "--max-slots", "4", "--rate", "2",
+                 "--prompt-len", "32", "--shared-prefix", "16",
+                 "--prefix-block", "8", "--max-new-tokens", "24",
+                 "--temperature", "0.8"]
+LONG_PROMPT = 12280             # max_seq 12288 = 12 chunks of 1024
+#: bf16 blocked against dense attention, relative to max|v|
+#: (tests/test_torch_decode.py: BF16_BLOCKED_REL)
+BF16_BLOCKED_REL = 2 ** -6
+#: phase 7's float32 logit tolerance (rtol = atol)
+F32_LOGIT_TOL = 1e-4
+
+
+def _serve(arch: str, argv: list, params):
+    """One run of the port's serve launcher on the card; returns its result,
+    engine and reports after checking that every request finished with
+    its tokens, that the reports are there and that no trace kernel ran
+    (the serving path reduces no trace buffer)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = serve.run(serve.parse_args(["--arch", arch, "--device", "cuda",
+                                      *argv]), params=params)
+    torch.cuda.synchronize()
+    launched = dict(ops.launches)
+    out, reports = res["result"], res["reports"]
+    n, new = out["config"]["num_requests"], out["config"]["max_new_tokens"]
+    states = set(out["request_states"].values())
+    if states != {"finished"} or len(out["tokens"]) != n \
+            or any(len(t) != new for t in out["tokens"].values()):
+        fail(f"serving {arch}: states {states}, "
+             f"{len(out['tokens'])} of {n} requests with {new} tokens")
+    if "serving" not in reports or "kernel_freq" not in reports:
+        fail(f"serving {arch}: reports {list(reports)}")
+    if any(launched.values()):
+        fail(f"serving {arch}: trace kernels launched {launched}")
+    return res
+
+
+def _serve_line(label: str, out: dict) -> None:
+    s = out["summary"]
+    print(f"serving {label}: wall {s['wall_s']:.3f} s, "
+          f"{s['generated_tokens']} tokens, {s['tok_per_s']:.2f} tok/s, "
+          f"TTFT p50 {s['ttft_s']['p50'] * 1e3:.1f} p90 "
+          f"{s['ttft_s']['p90'] * 1e3:.1f} ms, TPOT p50 "
+          f"{s['tpot_s']['p50'] * 1e3:.2f} p90 "
+          f"{s['tpot_s']['p90'] * 1e3:.2f} ms, {s['decode_steps']} decode "
+          f"ticks, mean occupancy {s['occupancy_mean']:.2f}, warm-up "
+          f"{s['compile_s']:.2f} s; on {CARD}", flush=True)
+
+
+def _blocked_check(cfg, params, tokens) -> None:
+    """Layer 0's blocked attention at the long prompt's bucket against
+    the dense one on one KV-head group (dense scores of every group would
+    take 19 GB), in query slices of 2048."""
+    dt = torch.bfloat16
+    with torch.no_grad():
+        attn = {k: v[0] for k, v in params["layers"]["attn"].items()}
+        h = params["embed"].to(dt)[tokens]
+        x = layers.rmsnorm(h, params["layers"]["ln1"][0], cfg.rmsnorm_eps)
+        s = tokens.shape[1]
+        pos = torch.arange(s, device="cuda")[None, :]
+        q, k, v = layers._qkv(attn, x, cfg, pos)
+        qg = layers._group(q, cfg.n_kv_heads)[:, :, :1]
+        k, v = k[:, :, :1].contiguous(), v[:, :, :1].contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocked = layers._sdpa_blocked(qg, k, v, True)
+        torch.cuda.synchronize()
+        t_blocked = time.perf_counter() - t0
+        err = 0.0
+        for q0 in range(0, s, 2048):
+            dense = layers._sdpa_dense(qg[:, q0:q0 + 2048], k, v, True,
+                                       q_offset=q0)
+            err = max(err, float((blocked[:, q0:q0 + 2048].float()
+                                  - dense.float()).abs().max()))
+        bound = BF16_BLOCKED_REL * float(v.float().abs().max())
+    print(f"serving long prompt: layer-0 blocked attention at {s} tokens "
+          f"(one KV-head group of {qg.shape[3]} heads, {s // 1024} chunks "
+          f"of 1024) in {t_blocked * 1e3:.1f} ms; max |blocked - dense| "
+          f"{err:.3e} within the bf16 bound {bound:.3e} "
+          f"(2**-6 of max|v|): {err <= bound}; on {CARD}", flush=True)
+    if not err <= bound:
+        fail(f"serving: blocked attention differs from dense by {err}")
+
+
+def _engine_tokens(cfg, params, prompts, margins=None):
+    """Greedy tokens of a staggered ragged trace (one submit per tick);
+    ``margins`` collects each sampled row's top-2 logit margin, keyed by
+    (prompt index, position)."""
+    eng = ServeEngine(cfg, params, max_seq=64, max_slots=3, prefix_block=8)
+    if margins is not None:
+        real = eng._sample_one
+        index = {}
+
+        def sample(req, row, position=None):
+            top = np.sort(row)[-2:]
+            pos = len(req.tokens) if position is None else position
+            margins[(index[req.rid], pos)] = float(top[1] - top[0])
+            return real(req, row, position)
+        eng._sample_one = sample
+    out, rids, pending = {}, {}, list(enumerate(prompts))
+    while pending or eng.has_work:
+        if pending:
+            i, p = pending.pop(0)
+            rid = eng.submit(p, SamplingParams(max_new_tokens=8))
+            rids[rid] = i
+            if margins is not None:
+                index[rid] = i
+        for rid in eng.step()["finished"]:
+            out[rids[rid]] = list(eng.requests[rid].tokens)
+    return out, eng
+
+
+def phase_serving() -> None:
+    # glm4-9b, full width and depth, one set of weights for four runs
+    cfg = configs.get("glm4-9b")
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, SEED, "cuda")
+    res = _serve("glm4-9b", SERVE_EXAMPLE, params)
+    out, eng, reports = res["result"], res["engine"], res["reports"]
+    s = out["summary"]
+    pool = eng.pool.stats()
+    names = [n for n, _c in reports["kernel_freq"]["top"]]
+    _serve_line("glm4-9b example traffic (rate 2)", out)
+    print(f"serving glm4-9b: prefix hit rate {s['prefix_hit_rate']:.3f}, "
+          f"pool {pool}, duplicate_copy_bytes "
+          f"{s['pool']['duplicate_copy_bytes']}; kernel_freq "
+          f"{reports['kernel_freq']['total_invocations']} invocations of "
+          f"{reports['kernel_freq']['distinct_kernels']} kernels, top "
+          f"{[(n[:50], c) for n, c in reports['kernel_freq']['top'][:4]]}",
+          flush=True)
+    if not s["prefix_hit_rate"] > 0:
+        fail("serving glm4-9b: no prefix hit")
+    if s["pool"]["duplicate_copy_bytes"] != 0:
+        fail("serving glm4-9b: prefix store copied bytes")
+    if pool["blocks_live"] != 0 or pool["blocks_used"] != \
+            pool["blocks_evictable"]:
+        fail(f"serving glm4-9b: blocks held after the drain {pool}")
+    # cuBLAS names its decode-shaped GEMMs nvjet_* on Hopper
+    if not names or any(n.startswith("aten::") for n in names) \
+            or not any(k in n.lower() for n in names
+                       for k in ("gemm", "nvjet", "cublas")):
+        fail(f"serving glm4-9b: kernel_freq names no device GEMM: "
+             f"{[n[:60] for n in names]}")
+    del res, out, eng, reports
+    rate0 = SERVE_EXAMPLE[:]
+    rate0[rate0.index("--rate") + 1] = "0"
+    runs = [_serve("glm4-9b", rate0, params)["result"] for _ in range(2)]
+    for i, r in enumerate(runs):
+        _serve_line(f"glm4-9b same trace at rate 0, run {i + 1}", r)
+    same = runs[0]["tokens"] == runs[1]["tokens"]
+    print(f"serving glm4-9b rate 0: tokens identical across two runs: "
+          f"{same}", flush=True)
+    if not same:
+        fail("serving glm4-9b: the keyed sampler gave different tokens")
+    del runs
+    free_card()
+    # one long prompt: blocked prefill, decodes over a 12k window
+    calls = []
+    real_blocked = layers._sdpa_blocked
+
+    def counted(q, *a, **kw):
+        calls.append(q.shape[1])
+        return real_blocked(q, *a, **kw)
+    layers._sdpa_blocked = counted
+    try:
+        res = _serve("glm4-9b", ["--num-requests", "1", "--max-slots", "1",
+                                 "--prompt-len", str(LONG_PROMPT),
+                                 "--prompt-len-min", str(LONG_PROMPT),
+                                 "--max-new-tokens", "8", "--temperature",
+                                 "0", "--no-warmup"], params)
+    finally:
+        layers._sdpa_blocked = real_blocked
+    out, eng = res["result"], res["engine"]
+    _serve_line(f"glm4-9b one {LONG_PROMPT}-token prompt", out)
+    print(f"serving long prompt: max_seq {eng.max_seq}, prefill (TTFT) "
+          f"{out['summary']['ttft_s']['p50'] * 1e3:.1f} ms through "
+          f"{len(calls)} blocked-attention calls at {sorted(set(calls))} "
+          f"tokens, then {out['summary']['decode_steps']} decodes over a "
+          f"{eng.pool.blocks_per_seq * eng.pool.block_size}-token paged "
+          f"window; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; on {CARD}",
+          flush=True)
+    if eng.max_seq != 12288 or calls != [12288] * cfg.n_layers:
+        fail(f"serving long prompt: max_seq {eng.max_seq}, blocked calls "
+             f"{calls}")
+    prompt = np.zeros((1, 12288), np.int32)
+    prompt[0, :LONG_PROMPT] = eng.requests[0].prompt
+    del res, out, eng
+    free_card()
+    _blocked_check(cfg, params, torch.from_numpy(prompt).cuda())
+    del params
+    free_card()
+    # zamba2-7b: hybrid, the slot pool, exact-length prefills
+    cfg = configs.get("zamba2-7b")
+    params = init_params(cfg, SEED, "cuda")
+    res = _serve("zamba2-7b", ["--num-requests", "4", "--max-slots", "2",
+                               "--max-new-tokens", "16", "--temperature",
+                               "0"], params)
+    _serve_line("zamba2-7b (4 requests, 2 slots)", res["result"])
+    if res["engine"].paged or res["engine"].prefix_cache is not None:
+        fail("serving zamba2-7b: not on the slot pool")
+    del res, params
+    free_card()
+    # reduced, float32: the card's tokens against the CPU's
+    for arch in ("paper-gpt2", "mamba2-2.7b", "zamba2-7b", "dbrx-132b"):
+        cfg = configs.reduced(configs.get(arch))
+        params = init_params(cfg, SEED, "cpu")
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (5, 17, 9, 30, 12, 3)]
+        margins: dict = {}
+        want, _e = _engine_tokens(cfg, params, prompts, margins)
+        got, eng = _engine_tokens(cfg, _to(params, "cuda"), prompts)
+        first = [(i, next((j for j, (a, b) in enumerate(zip(want[i], got[i]))
+                           if a != b), None)) for i in want]
+        diff = [(i, j) for i, j in first if j is not None]
+        if diff:
+            margin = margins[diff[0]]
+            note = f"first differing (request, position) {diff[0]}"
+        else:
+            margin = min(margins.values())
+            note = "smallest margin of the run"
+        pool = "paged" if eng.paged else "slot pool"
+        print(f"serving card vs cpu: reduced {arch} ({pool}), "
+              f"{len(prompts)} staggered requests, tokens identical: "
+              f"{not diff}; top-2 logit margin {margin:.3e} ({note}; "
+              f"tolerance {F32_LOGIT_TOL:g})", flush=True)
+        if diff and not margin < F32_LOGIT_TOL:
+            fail(f"serving card vs cpu {arch}: tokens differ at {diff[0]} "
+                 f"with a top-2 margin of {margin}")
+        del params, eng
+        free_card()
+
+
 def profiler_probe(when: str) -> None:
     """Print how many of one fill's and one negation's two device records
     a profiler session keeps (a short session late in this process has
@@ -1390,6 +1645,7 @@ def main() -> None:
     profiler_probe("before the captures")
     rows["object_histogram"]["launches_by_path"].update(phase_quickstart())
     profiler_probe("after the captures")
+    phase_serving()
     for name in ("trace_aggregate", "object_histogram"):
         rows[name]["launches"] = sum(rows[name]["launches_by_path"].values())
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)

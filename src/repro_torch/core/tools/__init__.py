@@ -16,9 +16,10 @@ from .hotness import HotnessTool
 from .timeline import MemoryTimelineTool
 from .locator import LocatorTool
 from .roofline import RooflineTool
+from .serving import ServingTool
 from . import offload
 
 __all__ = ["PastaTool", "KernelFrequencyTool", "WorkingSetTool",
            "HotnessTool", "MemoryTimelineTool", "LocatorTool",
-           "RooflineTool", "offload",
+           "RooflineTool", "ServingTool", "offload",
            "TOOL_REGISTRY", "register", "parse_tool_spec", "resolve_tools"]

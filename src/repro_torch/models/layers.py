@@ -1,6 +1,19 @@
 """Transformer layers: RMSNorm, RoPE/M-RoPE, GQA attention (with optional
 qk-norm), GLU MLPs, as plain functions on tensors and dicts of parameters.
 
+Attention paths, as the reference's:
+
+  * ``dense``   — full (S×T) scores; training and short prefill.
+  * ``blocked`` — a loop over KV chunks with an online softmax
+    (flash-style); prefill longer than ``attn_blocked_threshold``, where
+    the S² scores would not fit.
+  * ``decode``  — one (or a few) query tokens against a KV cache: a dense
+    slot cache ``{"k","v": (B,T,Hkv,D)}`` or a paged block pool
+    ``{"pk","pv": (n_blocks,bs,Hkv,D), "bt": (B,blocks) block tables}``,
+    each with per-row ``"length"``.  New K/V are written into the cache
+    tensors in place (the serving pools are preallocated, where the
+    reference donates them to ``jax.jit``).
+
 Numerics follow the JAX reference: matmuls in the config compute dtype
 (bf16 at full width) with each weight cast to it, softmax/norm statistics
 in f32.  Parameter and activation layouts are the reference's, so the
@@ -152,16 +165,18 @@ def _group(q, n_kv: int):
     return q.reshape(b, s, n_kv, h // n_kv, d_)
 
 
-def _sdpa_dense(q, k, v, causal: bool, softmax_dtype=torch.float32):
+def _sdpa_dense(q, k, v, causal: bool, q_offset=0,
+                softmax_dtype=torch.float32):
     """q:(B,S,Hkv,G,D) k/v:(B,T,Hkv,D).  Full-scores attention: scores in
     ``softmax_dtype``, scaled by 1/sqrt(D) rounded to that dtype, masked
-    with NEG_INF, weights cast back to q's dtype before the PV product."""
+    with NEG_INF, weights cast back to q's dtype before the PV product.
+    ``q_offset``: absolute position of query 0 (a slice of the queries)."""
     scale = _rounded(1.0 / math.sqrt(q.shape[-1]), softmax_dtype)
     scores = torch.einsum("bshgd,bthd->bhgst", q, k).to(softmax_dtype) \
         * scale
     if causal:
         s_len, t_len = scores.shape[-2], scores.shape[-1]
-        qi = torch.arange(s_len, device=q.device)[:, None]
+        qi = torch.arange(s_len, device=q.device)[:, None] + q_offset
         ki = torch.arange(t_len, device=q.device)[None, :]
         scores = torch.where(ki <= qi, scores, scores.new_full((), NEG_INF))
     m = scores.amax(dim=-1, keepdim=True).detach()   # stop_gradient
@@ -171,20 +186,207 @@ def _sdpa_dense(q, k, v, causal: bool, softmax_dtype=torch.float32):
     return out.reshape(*out.shape[:2], -1, out.shape[-1])    # (B,S,H,D)
 
 
+def _sdpa_blocked(q, k, v, causal: bool, chunk: int = 1024):
+    """Flash-style online softmax over KV chunks.  q:(B,S,Hkv,G,D),
+    k/v:(B,T,Hkv,D).  The chunk is ``min(chunk, T)``, halved until it
+    divides T, as the reference's; scores, running max and sum in float32,
+    a causal mask per chunk."""
+    b, s, hkv, g, d_ = q.shape
+    t = k.shape[1]
+    chunk = min(chunk, t)
+    while t % chunk:           # shapes are powers of two in practice
+        chunk //= 2
+    scale = 1.0 / math.sqrt(d_)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qi = torch.arange(s, device=q.device)[:, None]
+    acc = torch.zeros((b, hkv, g, s, d_), **f32)
+    m = torch.full((b, hkv, g, s), NEG_INF, **f32)
+    l = torch.zeros((b, hkv, g, s), **f32)
+    for c0 in range(0, t, chunk):
+        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        sc = torch.einsum("bshgd,bthd->bhgst", q, kc).to(torch.float32) \
+            * scale
+        if causal:
+            ki = c0 + torch.arange(chunk, device=q.device)[None, :]
+            sc = torch.where(ki <= qi, sc, sc.new_full((), NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgst,bthd->bhgsd", p.to(q.dtype), vc).to(torch.float32)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4)                         # (B,S,Hkv,G,D)
+    return out.reshape(b, s, hkv * g, d_)
+
+
+def _sdpa_decode_partial(q, k_cache, v_cache, lengths, base=None):
+    """Partial-softmax decode statistics over one KV segment.
+
+    q:(B,S,Hkv,G,D), cache:(B,T,Hkv,D).  Returns (acc, m, l) in float32,
+    ``acc`` the un-normalized weighted V sum.  ``base`` (B,): per-row
+    length *before* this append; with S>1 the mask is causal per query
+    (query ``s`` sits at ``base+s`` and sees keys ``<= base+s``).  Without
+    it every query shares the (B,)-length mask (one-token decode, which
+    ``base`` reproduces exactly at S=1)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bshgd,bthd->bhgst", q, k_cache) \
+        .to(torch.float32) * scale
+    t = k_cache.shape[1]
+    s = q.shape[1]
+    ki = torch.arange(t, device=q.device)
+    if base is None or s == 1:
+        mask = ki[None, :] < lengths[:, None]                  # (B,T)
+        mask = mask[:, None, None, None, :]
+    else:
+        limit = base[:, None] + torch.arange(1, s + 1, device=q.device)
+        mask = ki[None, None, :] < limit[:, :, None]           # (B,S,T)
+        mask = mask[:, None, None, :, :]
+    scores = torch.where(mask, scores, scores.new_full((), NEG_INF))
+    m = scores.amax(dim=-1)                                  # (B,H,G,S)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgst,bthd->bhgsd", p.to(q.dtype),
+                       v_cache).to(torch.float32)
+    return acc, m, l
+
+
+def _sdpa_decode(q, k_cache, v_cache, lengths, base=None):
+    """Decode: q:(B,S,Hkv,G,D) against cache:(B,T,Hkv,D), a softmax over
+    the cache masked at each row's length (causal per query with
+    ``base``)."""
+    acc, _m, l = _sdpa_decode_partial(q, k_cache, v_cache, lengths,
+                                      base=base)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.to(q.dtype).permute(0, 3, 1, 2, 4)             # (B,S,Hkv,G,D)
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1, out.shape[-1])
+
+
+# ------------------------------------------------------------ cache writes
+def write_plan(flat_pos: torch.Tensor, valid: torch.Tensor) -> tuple:
+    """Indices for a scatter that drops the entries where ``valid`` is
+    false, as JAX's ``.at[...].set(mode="drop")`` does, with no host sync
+    (a boolean mask would wait for the card).  ``flat_pos`` (N,): target
+    rows of a flattened cache; returns ``(idx, src)`` for :func:`put`.
+
+    A dropped entry rewrites the first valid entry's target with that
+    entry's own value, so the duplicate write stores the same bytes; with
+    no valid entry, every entry rewrites row 0 with its current value."""
+    n = flat_pos.shape[0]
+    valid = valid.reshape(-1)
+    # (1,) tensors throughout: indexing with a 0-d tensor reads it on the
+    # host, a wait on the card
+    first = valid.to(torch.int8).argmax().view(1)
+    anyv = valid.any().view(1)
+    zero = flat_pos.new_zeros(1)
+    idx = torch.where(valid, flat_pos,
+                      torch.where(anyv, flat_pos.index_select(0, first),
+                                  zero))
+    src = torch.where(valid, torch.arange(n, device=flat_pos.device),
+                      torch.where(anyv, first, torch.full_like(first, n)))
+    return idx, src
+
+
+def put(flat: torch.Tensor, plan: tuple, vals: torch.Tensor) -> None:
+    """``flat[idx] = vals[src]`` in place, ``vals`` (N, ...) rows in
+    ``flat``'s layout; ``src == N`` names ``flat``'s current row 0."""
+    idx, src = plan
+    ext = torch.cat([vals.to(flat.dtype), flat[:1]])
+    flat.index_put_((idx,), ext[src])
+
+
+def dense_plan(base: torch.Tensor, s: int, max_seq: int) -> tuple:
+    """Write plan of an S-token append at each row's ``base`` into a dense
+    (B, max_seq) slot cache: positions at or past ``max_seq`` drop."""
+    b = base.shape[0]
+    pos = base.long()[:, None] + torch.arange(s, device=base.device)
+    rows = torch.arange(b, device=base.device)[:, None]
+    return write_plan((rows * max_seq + pos).reshape(-1),
+                      (pos < max_seq).reshape(-1))
+
+
+def paged_plan(bt: torch.Tensor, base: torch.Tensor, s: int,
+               n_blocks: int, block_size: int) -> dict:
+    """Write plan and gather table of an S-token append at each row's
+    ``base`` through block tables ``bt`` (B, blocks), sentinel ``n_blocks``.
+    A position at or past the table span, or in a sentinel entry, drops
+    (parked rows, unbound right-pad); the gather clamps the sentinel to
+    the last block, as JAX's gather does."""
+    t = bt.shape[1] * block_size
+    pos = base.long()[:, None] + torch.arange(s, device=bt.device)
+    col = torch.clamp(pos // block_size, max=bt.shape[1] - 1)
+    blk = torch.gather(bt.long(), 1, col)
+    blk = torch.where(pos < t, blk, torch.full_like(blk, n_blocks))
+    flat = blk * block_size + pos % block_size
+    return {"write": write_plan(flat.reshape(-1),
+                                (blk < n_blocks).reshape(-1)),
+            "gather": torch.clamp(bt.long(), max=n_blocks - 1)}
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              positions: torch.Tensor):
-    """Returns (out, new_cache) with new_cache = {"k","v": (B,T,Hkv,D),
-    "length": (B,) int32}, as the reference's prefill does."""
-    if x.shape[1] > cfg.attn_blocked_threshold:
-        raise NotImplementedError("blocked (flash-style) attention is not "
-                                  "ported yet")
+              positions: torch.Tensor, cache: dict | None = None,
+              blocked_threshold: int | None = None):
+    """Returns (out, new_cache).  Without ``cache`` (prefill) new_cache is
+    {"k","v": (B,S,Hkv,D), "length": (B,) int32}.  With one, the S new
+    tokens append at each row's ``length``; the cache's tensors are
+    written in place and new_cache holds them with the new lengths.  A
+    per-layer cache may carry ``"plan"`` (:func:`dense_plan` /
+    :func:`paged_plan`), made once for every layer of a forward."""
+    if blocked_threshold is None:
+        blocked_threshold = cfg.attn_blocked_threshold
     q, k, v = _qkv(p, x, cfg, positions)
     qg = _group(q, cfg.n_kv_heads)
-    out = _sdpa_dense(qg, k, v, cfg.causal,
-                      softmax_dtype=torch_dtype(cfg.attn_softmax_dtype))
-    new_cache = {"k": k, "v": v,
-                 "length": torch.full((x.shape[0],), x.shape[1],
-                                      dtype=torch.int32, device=x.device)}
+    b, s = x.shape[0], x.shape[1]
+    if cache is None:
+        if s > blocked_threshold:
+            out = _sdpa_blocked(qg, k, v, cfg.causal)
+        else:
+            out = _sdpa_dense(
+                qg, k, v, cfg.causal,
+                softmax_dtype=torch_dtype(cfg.attn_softmax_dtype))
+        new_cache = {"k": k, "v": v,
+                     "length": torch.full((b,), s, dtype=torch.int32,
+                                          device=x.device)}
+    elif "rk" in cache:
+        raise NotImplementedError(
+            "the two-tier KV cache (kv_two_tier) belongs to "
+            "sequence-sharded decode, which waits for distribution "
+            "(ROADMAP queue 1, item 7)")
+    elif "pk" in cache:
+        # paged decode/append: new K/V scatter through each row's block
+        # table at base..base+S-1; the softmax gathers the row's window
+        # back as a contiguous (B, T) view, the values the dense slot
+        # layout would hold
+        pk, pv, bt = cache["pk"], cache["pv"], cache["bt"]
+        base = cache["length"]
+        n_blocks, bs_blk = pk.shape[0], pk.shape[1]
+        plan = cache.get("plan") or paged_plan(bt, base, s, n_blocks,
+                                               bs_blk)
+        put(pk.view(-1, *pk.shape[2:]), plan["write"], k.flatten(0, 1))
+        put(pv.view(-1, *pv.shape[2:]), plan["write"], v.flatten(0, 1))
+        t = bt.shape[1] * bs_blk
+        k_cache = pk[plan["gather"]].reshape(b, t, *pk.shape[2:])
+        v_cache = pv[plan["gather"]].reshape(b, t, *pv.shape[2:])
+        lengths = base + s
+        out = _sdpa_decode(qg, k_cache, v_cache, lengths,
+                           base=base if s > 1 else None)
+        new_cache = {"pk": pk, "pv": pv, "bt": bt, "length": lengths}
+    else:
+        # dense slot cache: each row appends at ITS OWN length (the serving
+        # pool interleaves requests at different positions; a multi-token
+        # append is chunked prefill or a speculative verify); positions at
+        # or past max_seq (parked rows, draft spill) drop
+        k_cache, v_cache = cache["k"], cache["v"]
+        base = cache["length"]
+        t = k_cache.shape[1]
+        plan = cache.get("plan") or dense_plan(base, s, t)
+        put(k_cache.view(-1, *k_cache.shape[2:]), plan, k.flatten(0, 1))
+        put(v_cache.view(-1, *v_cache.shape[2:]), plan, v.flatten(0, 1))
+        lengths = base + s
+        out = _sdpa_decode(qg, k_cache, v_cache, lengths, base=base)
+        new_cache = {"k": k_cache, "v": v_cache, "length": lengths}
     op_hook("attn.sdpa", (q, k, v), (out,))
     y = torch.einsum("bshd,hdm->bsm", out, p["wo"].to(x.dtype))
     op_hook("attn.out_proj", (out, p["wo"]), (y,))

@@ -1,4 +1,4 @@
-"""Decoder LM of every family of the reference, without a KV cache.
+"""Decoder LM of every family of the reference, with its decode caches.
 
   * dense / vlm / audio — GQA attention + GLU MLP blocks (vlm and audio
     differ only in the stubbed modality frontend, ``frontend="embed"``:
@@ -24,11 +24,12 @@ graph would keep inputs alive and change the stream.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
-from repro_torch.core.instrument import op_hook
+from repro_torch.core.instrument import capturing, op_hook
 from .config import ModelConfig
 from . import layers as L
 from . import mamba2 as M
@@ -108,10 +109,10 @@ def _n_stacked(tree: dict, axis: int = 0) -> int:
     return leaf.shape[axis]
 
 
-def _attn_block(blk, h, cfg, positions):
+def _attn_block(blk, h, cfg, positions, cache=None):
     a, new_cache = L.attention(blk["attn"], L.rmsnorm(h, blk["ln1"],
                                                       cfg.rmsnorm_eps),
-                               cfg, positions)
+                               cfg, positions, cache)
     h = h + a
     if "moe" in blk:
         y, aux = MOE.moe_layer(blk["moe"], L.rmsnorm(h, blk["ln2"],
@@ -122,17 +123,116 @@ def _attn_block(blk, h, cfg, positions):
     return h + y, new_cache, aux
 
 
-def _mamba_block(blk, h, cfg):
+def _mamba_block(blk, h, cfg, state=None):
     y, new_state = M.mamba2_layer(blk["mamba"],
                                   L.rmsnorm(h, blk["ln"], cfg.rmsnorm_eps),
-                                  cfg)
+                                  cfg, state)
     return h + y, new_state
 
 
-def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig):
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> dict:
+    """Decode caches, zero-initialized on ``device`` (filled by prefill):
+    ``{"kv": {"k","v": (layers, B, max_seq, Hkv, D), "length": (B,)}}``
+    for the attention families; SSM states (conv tails in the compute
+    dtype, the scan state in float32) for ssm; both for hybrid, with one
+    KV slot per shared-attention application."""
+    if cfg.kv_two_tier and cfg.family != "hybrid":
+        raise NotImplementedError(
+            "the two-tier KV cache (kv_two_tier) belongs to "
+            "sequence-sharded decode, which waits for distribution "
+            "(ROADMAP queue 1, item 7)")
+    check_supported(cfg)
+    dt = L.torch_dtype(cfg.dtype)
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def length():
+        return zeros(batch, dtype=torch.int32)
+
+    def kv(n):
+        shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape), "length": length()}
+
+    def ssm(*lead):
+        gs = cfg.ssm_groups * cfg.ssm_state
+        w = cfg.ssm_conv_width - 1
+        return {"conv_x": zeros(*lead, batch, w, cfg.d_inner),
+                "conv_B": zeros(*lead, batch, w, gs),
+                "conv_C": zeros(*lead, batch, w, gs),
+                "ssm": zeros(*lead, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state, dtype=torch.float32)}
+
+    if cfg.family in ATTN_FAMILIES:
+        return {"kv": kv(cfg.n_layers)}
+    if cfg.family == "ssm":
+        return {"ssm": ssm(cfg.n_layers), "length": length()}
+    every = cfg.shared_attn_every
+    n_groups = cfg.n_layers // every
+    tail = cfg.n_layers - n_groups * every
+    out = {"kv": kv(n_groups), "ssm_groups": ssm(n_groups, every)}
+    if tail:
+        out["ssm_tail"] = ssm(tail)
+    return out
+
+
+def _cache_length(cache: dict, cfg: ModelConfig):
+    if "kv" in cache:
+        return cache["kv"]["length"]
+    # pure ssm: the serve engine keeps a length entry
+    length = cache.get("length")
+    if length is None:
+        leaf = next(iter(cache["ssm"].values()))
+        length = torch.zeros((1,), dtype=torch.int32, device=leaf.device)
+    return length
+
+
+def _stack_states(states: list) -> dict:
+    """[{leaf: (B, ...)}] per layer -> {leaf: (layers, B, ...)}."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _kv_plan(kv: dict, s: int):
+    """The write plan (and paged gather table) every layer of one forward
+    shares: built once per forward, not once per layer."""
+    if "rk" in kv:
+        raise NotImplementedError(
+            "the two-tier KV cache (kv_two_tier) belongs to "
+            "sequence-sharded decode, which waits for distribution "
+            "(ROADMAP queue 1, item 7)")
+    if "pk" in kv:
+        return L.paged_plan(kv["bt"], kv["length"], s, kv["pk"].shape[1],
+                            kv["pk"].shape[2])
+    return L.dense_plan(kv["length"], s, kv["k"].shape[2])
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
+            cache: dict | None = None, positions: torch.Tensor | None = None,
+            return_cache: bool = False, logits_mode: str = "all",
+            logits_index: torch.Tensor | None = None):
     """inputs: (B,S) int32 tokens, or (B,S,d) embeddings (the ``embed``
-    frontend stub).  Returns (logits, None) — the second slot is the
-    reference's cache, which this path never builds."""
+    frontend stub).  Returns (logits, new_cache_or_None).
+
+    ``return_cache=True`` without an input cache collects the prefill
+    KV/SSM caches.  With ``cache`` (from :func:`init_cache`, a serving
+    pool, or a prefill padded with ``serve.cache.pad_cache_to``) the S
+    tokens append at each row's length: KV is written into the cache in
+    place, SSM states come back as new tensors.  ``logits_mode="last"``
+    runs the lm_head on the last position only; ``"index"`` on per-row
+    positions from ``logits_index`` — (B,) for a ragged right-padded
+    prefill, or (B, P) for several positions per row (a speculative
+    verify).  The layer loops of the cached and ``return_cache`` paths
+    run with the operator hooks silent, as the reference's ``lax.scan``
+    traces them."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg.dtype)
     if inputs.dim() == 2 and cfg.frontend == "none":
@@ -141,14 +241,25 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig):
     else:
         h = inputs.to(dt)
     b, s = h.shape[0], h.shape[1]
-    positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
-    if cfg.family in ATTN_FAMILIES:
-        h, new_cache = _run_stacked_attn(params, h, cfg, positions)
-    elif cfg.family == "ssm":
-        h, new_cache = _run_stacked_ssm(params, h, cfg)
-    else:
-        h, new_cache = _run_hybrid(params, h, cfg, positions)
+    if positions is None:
+        arange = torch.arange(s, device=h.device)[None, :]
+        if cache is not None:
+            positions = _cache_length(cache, cfg)[:, None] + arange
+        else:
+            positions = arange.expand(b, s)
+    run = {"ssm": _run_stacked_ssm, "hybrid": _run_hybrid}.get(
+        cfg.family, _run_stacked_attn)
+    keep = cache is not None or return_cache
+    with capturing() if keep else contextlib.nullcontext():
+        h, new_cache = run(params, h, cfg, positions, cache, return_cache)
     h = L.rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
+    if logits_mode == "last":
+        h = h[:, -1:, :]          # serving: lm_head on the new token only
+    elif logits_mode == "index":
+        idx = logits_index.long()
+        if idx.dim() == 1:
+            idx = idx[:, None]
+        h = torch.gather(h, 1, idx[..., None].expand(-1, -1, h.shape[-1]))
     if cfg.tie_embeddings and "embed" in params:
         logits = torch.einsum("bsd,vd->bsv", h, params["embed"].to(dt))
     elif "lm_head" in params:
@@ -159,40 +270,114 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig):
     return logits, new_cache
 
 
-def _run_stacked_attn(params, h, cfg, positions):
+def _run_stacked_attn(params, h, cfg, positions, cache=None,
+                      return_cache=False):
     layers = params["layers"]
     n = _n_stacked(layers)
+    b, s = h.shape[0], h.shape[1]
+    if cache is None:
+        ks, vs = [], []
+        for i in range(n):
+            op_hook(f"layer{i}", (h,), ())
+            h, kv, _aux = _attn_block(_tree_at(layers, i), h, cfg, positions)
+            if return_cache:
+                ks.append(kv["k"])
+                vs.append(kv["v"])
+        if not return_cache:
+            return h, None
+        return h, {"kv": {"k": torch.stack(ks), "v": torch.stack(vs),
+                          "length": torch.full((b,), s, dtype=torch.int32,
+                                               device=h.device)}}
+    kv = cache["kv"]
+    plan = _kv_plan(kv, s)
+    paged = "pk" in kv
     for i in range(n):
-        op_hook(f"layer{i}", (h,), ())
-        h, _kv, _aux = _attn_block(_tree_at(layers, i), h, cfg, positions)
-    return h, None
+        if paged:
+            kv_i = {"pk": kv["pk"][i], "pv": kv["pv"][i], "bt": kv["bt"],
+                    "length": kv["length"], "plan": plan}
+        else:
+            kv_i = {"k": kv["k"][i], "v": kv["v"][i],
+                    "length": kv["length"], "plan": plan}
+        h, _kv, _aux = _attn_block(_tree_at(layers, i), h, cfg, positions,
+                                   kv_i)
+    return h, {"kv": {**kv, "length": kv["length"] + s}}
 
 
-def _run_stacked_ssm(params, h, cfg):
+def _run_stacked_ssm(params, h, cfg, positions=None, cache=None,
+                     return_cache=False):
+    del positions                 # attention-free
     layers = params["layers"]
     n = _n_stacked(layers)
+    states = []
     for i in range(n):
         op_hook(f"layer{i}", (h,), ())
-        h, _st = _mamba_block(_tree_at(layers, i), h, cfg)
-    return h, None
+        st = _tree_at(cache["ssm"], i) if cache is not None else None
+        h, new_st = _mamba_block(_tree_at(layers, i), h, cfg, st)
+        if cache is not None or return_cache:
+            states.append(new_st)
+    if cache is None and not return_cache:
+        return h, None
+    s = h.shape[1]
+    if cache is None:
+        return h, {"ssm": _stack_states(states),
+                   "length": torch.full((h.shape[0],), s, dtype=torch.int32,
+                                        device=h.device)}
+    return h, {"ssm": _stack_states(states),
+               "length": cache.get("length", 0) + s}
 
 
-def _run_hybrid(params, h, cfg, positions):
+def _run_hybrid(params, h, cfg, positions, cache=None, return_cache=False):
     shared = params["shared"]
     groups = params["groups"]
     n_g = _n_stacked(groups)
     every = _n_stacked(groups, 1)
+    keep = cache is not None or return_cache
+    b, s = h.shape[0], h.shape[1]
+    kv = cache["kv"] if cache is not None else None
+    plan = _kv_plan(kv, s) if kv is not None else None
+    group_states, ks, vs = [], [], []
     for gi in range(n_g):
+        states = []
         for li in range(every):
             op_hook(f"group{gi}.layer{li}", (h,), ())
-            h, _ = _mamba_block(_tree_at(_tree_at(groups, gi), li), h, cfg)
+            st = (_tree_at(_tree_at(cache["ssm_groups"], gi), li)
+                  if cache is not None else None)
+            h, new_st = _mamba_block(_tree_at(_tree_at(groups, gi), li), h,
+                                     cfg, st)
+            if keep:
+                states.append(new_st)
         op_hook(f"group{gi}.shared_attn", (h,), ())
-        h, _kv, _aux = _attn_block(shared, h, cfg, positions)
+        kv_i = None
+        if kv is not None:
+            kv_i = {"k": kv["k"][gi], "v": kv["v"][gi],
+                    "length": kv["length"], "plan": plan}
+        h, new_kv, _aux = _attn_block(shared, h, cfg, positions, kv_i)
+        if keep:
+            group_states.append(_stack_states(states))
+            ks.append(new_kv["k"])
+            vs.append(new_kv["v"])
+    tail_states = []
     if "tail" in params:
         n_t = _n_stacked(params["tail"])
         for ti in range(n_t):
-            h, _ = _mamba_block(_tree_at(params["tail"], ti), h, cfg)
-    return h, None
+            st = (_tree_at(cache["ssm_tail"], ti)
+                  if cache is not None else None)
+            h, new_st = _mamba_block(_tree_at(params["tail"], ti), h, cfg,
+                                     st)
+            if keep:
+                tail_states.append(new_st)
+    if not keep:
+        return h, None
+    if kv is not None:
+        new_kv = {**kv, "length": kv["length"] + s}
+    else:
+        new_kv = {"k": torch.stack(ks), "v": torch.stack(vs),
+                  "length": torch.full((b,), s, dtype=torch.int32,
+                                       device=h.device)}
+    new_cache = {"kv": new_kv, "ssm_groups": _stack_states(group_states)}
+    if tail_states:
+        new_cache["ssm_tail"] = _stack_states(tail_states)
+    return h, new_cache
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,12 +1,14 @@
-"""Mamba2 (SSD — state-space duality) blocks, chunked, without a decode
-state.
+"""Mamba2 (SSD — state-space duality) blocks, chunked, with the decode
+state of the serving path.
 
 The sequence is split into chunks of Q tokens (arXiv:2405.21060); within a
 chunk the recurrence is materialized as a (Q×Q) lower-triangular
 "attention-like" matrix, and chunk states pass from one chunk to the next
-in a loop — O(S·Q) instead of O(S²).  State decay products are computed in
-log space (segment-sum trick) in f32; projections run in the compute
-dtype.  The scan is plain PyTorch, as it is plain ``jnp`` in the reference.
+in a loop — O(S·Q) instead of O(S²), and O(1) state for decode, which
+runs the sequential recurrence (``ssd_ref``) from the carried state.
+State decay products are computed in log space (segment-sum trick) in
+f32; projections run in the compute dtype.  The scan is plain PyTorch,
+as it is plain ``jnp`` in the reference.
 
 The local variables of :func:`mamba2_layer` follow the reference's, since
 the hooked tensors die when the function returns, in the order its locals
@@ -60,12 +62,16 @@ def softplus(v: torch.Tensor) -> torch.Tensor:
                                           device=v.device))
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor):
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     """Depthwise causal conv. x:(B,S,C), w:(W,C). Returns (y, tail) where
-    tail holds the trailing W-1 inputs (the streaming-decode state)."""
+    tail holds the trailing W-1 inputs (the streaming-decode state);
+    ``state``, when given, is the previous call's tail."""
     width = w.shape[0]
-    pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
-                      device=x.device)
+    if state is None:
+        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                          dtype=x.dtype, device=x.device)
+    else:
+        pad = state
     xp = torch.cat([pad, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
             for i in range(width))
@@ -84,11 +90,12 @@ def _segsum(dA: torch.Tensor) -> torch.Tensor:
     return torch.exp(diff.masked_fill(~mask, float("-inf")))
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int):
+def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     """SSD over chunks.
 
     x: (b,s,h,p) f32 | dt: (b,s,h) f32 | A: (h,) f32 (negative)
     B,C: (b,s,h,n) f32 (group-broadcast done by caller)
+    init_state: (b,h,p,n) f32 entering the first chunk (zeros if None)
     Returns y (b,s,h,p) f32 and final state (b,h,p,n) f32.
     """
     b, s, h, p = x.shape
@@ -117,7 +124,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(cs[..., -1])                  # (b,nc,h)
-    s_prev = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    s_prev = init_state if init_state is not None else torch.zeros(
+        (b, h, p, n), dtype=torch.float32, device=x.device)
     s_prevs = []
     for c in range(nc):
         s_prevs.append(s_prev)
@@ -131,11 +139,13 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, final_state
 
 
-def ssd_ref(x, dt, A, B, C):
-    """Naive sequential recurrence oracle."""
+def ssd_ref(x, dt, A, B, C, init_state=None):
+    """Sequential recurrence from ``init_state`` (zeros if None): the
+    oracle, and the decode step."""
     b, s, h, p = x.shape
     n = B.shape[-1]
-    st = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    st = init_state if init_state is not None else torch.zeros(
+        (b, h, p, n), dtype=torch.float32, device=x.device)
     ys = []
     for t in range(s):
         xt, dtt, Bt, Ct = x[:, t], dt[:, t], B[:, t], C[:, t]
@@ -146,9 +156,11 @@ def ssd_ref(x, dt, A, B, C):
     return torch.stack(ys, dim=1), st
 
 
-def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B,S,d_model).  Returns (out, state) with state = {"conv_x",
-    "conv_B", "conv_C", "ssm"}, the reference's prefill state."""
+def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: dict | None = None):
+    """x: (B,S,d_model).  Returns (out, new_state), a state being
+    {"conv_x", "conv_B", "conv_C", "ssm"}.  Without ``state`` (prefill)
+    the scan is chunked; with one (decode) the recurrence runs from it."""
     dt_ = x.dtype
     b, s, _ = x.shape
     nh, pd, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
@@ -159,9 +171,10 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     Cv = torch.einsum("bsd,de->bse", x, p["w_C"].to(dt_))
     dt_raw = torch.einsum("bsd,dh->bsh", x, p["w_dt"].to(dt_))
 
-    xs, conv_x = _causal_conv(xs, p["conv_x"].to(dt_))
-    Bv, conv_B = _causal_conv(Bv, p["conv_B"].to(dt_))
-    Cv, conv_C = _causal_conv(Cv, p["conv_C"].to(dt_))
+    st = state or {}
+    xs, conv_x = _causal_conv(xs, p["conv_x"].to(dt_), st.get("conv_x"))
+    Bv, conv_B = _causal_conv(Bv, p["conv_B"].to(dt_), st.get("conv_B"))
+    Cv, conv_C = _causal_conv(Cv, p["conv_C"].to(dt_), st.get("conv_C"))
 
     A = -torch.exp(p["A_log"])                            # (h,) negative
     dt_act = softplus(dt_raw.to(torch.float32)
@@ -175,7 +188,7 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     Bh = Bh.to(torch.float32)
     Ch = Ch.to(torch.float32)
 
-    if s > 1:
+    if state is None and s > 1:
         chunk = min(cfg.ssm_chunk, s)
         pad = (-s) % chunk
         if pad:
@@ -189,7 +202,7 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
         else:
             y, ssm = ssd_chunked(xh, dt_act, A, Bh, Ch, chunk)
     else:
-        y, ssm = ssd_ref(xh, dt_act, A, Bh, Ch)
+        y, ssm = ssd_ref(xh, dt_act, A, Bh, Ch, st.get("ssm"))
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(b, s, nh * pd).to(dt_)
 

@@ -1,7 +1,9 @@
 """Card-only tests of the port (marker ``cuda``): each CUDA kernel against
 its plain version, the analysis path of each model family on the card
-against the CPU, the compiled-step capture of device kernels, and the
-train step on the card against the CPU.
+against the CPU, the compiled-step capture of device kernels, the train
+step on the card against the CPU, and the serving path's device-side
+hazards: paged writes and gathers at the sentinel, blocked attention, and
+the engine's tokens on the card against the CPU.
 
 They import neither ``jax`` nor the JAX package, so they run where only
 PyTorch is installed (``--noconftest`` skips ``tests/conftest.py``, which
@@ -23,7 +25,9 @@ from repro_torch.kernels import instrumented_matmul as im
 from repro_torch.kernels import ops, ref
 from repro_torch.core import capture
 from repro_torch.launch import analyze
-from repro_torch.models import init_params
+from repro_torch.models import forward, init_params
+from repro_torch.models import layers
+from repro_torch.serve import SamplingParams, ServeEngine
 from repro_torch.train import OptConfig, make_train_step
 from repro_torch.train.optimizer import init_opt_state
 
@@ -369,3 +373,115 @@ def test_histograms_largest_buffer(rng, card, nb, ntb):
     plan_c, plan_h = _histograms(card, a, rng.integers(0, ntb, n), starts,
                                  ends, 4096, nb, ntb, 6)
     assert plan_c.fills and plan_h.fills
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_paged_decode_with_parked_rows_and_sentinels_equals_the_cpu(card):
+    """A paged append where one row is parked at the span and the other's
+    right-pad falls in sentinel table entries: on the card nothing indexes
+    out of range (an assert there would end the CUDA context), and logits
+    and pool bytes equal the CPU's."""
+    cfg = configs.reduced(configs.get("paper-gpt2"))
+    params = init_params(cfg, 0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    n_blocks, bs = 6, 4
+    shape = (cfg.n_layers, n_blocks, bs, cfg.n_kv_heads, cfg.head_dim)
+    pk, pv = torch.randn(shape, generator=gen), torch.randn(shape,
+                                                            generator=gen)
+    bt = torch.tensor([[4, 1, n_blocks, n_blocks], [0, 2, 3, n_blocks]],
+                      dtype=torch.int32)
+    x = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+                      dtype=torch.int32)
+    out = []
+    for dev in ("cpu", card):
+        cache = {"kv": {"pk": pk.clone().to(dev), "pv": pv.clone().to(dev),
+                        "bt": bt.to(dev),
+                        "length": torch.tensor([0, 16], dtype=torch.int32,
+                                               device=dev)}}
+        with torch.no_grad():
+            logits, new = forward(_to(params, dev), x.to(dev), cfg,
+                                  cache=cache, logits_mode="index",
+                                  logits_index=torch.tensor([5, 0],
+                                                            device=dev))
+        out.append([t.cpu() for t in (logits, new["kv"]["pk"],
+                                      new["kv"]["pv"])])
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_blocked_attention_on_the_card_equals_the_cpu(card, causal):
+    """bf16 blocked attention over 4 chunks on the card: within the stated
+    bf16 bound (2**-6 of max|v|) of the CPU's, and of dense attention."""
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn((1, 512, 2, 4, 64), generator=gen).to(torch.bfloat16)
+    k = torch.randn((1, 512, 2, 64), generator=gen).to(torch.bfloat16)
+    v = torch.randn((1, 512, 2, 64), generator=gen).to(torch.bfloat16)
+    cpu = layers._sdpa_blocked(q, k, v, causal, chunk=128).float()
+    gpu = layers._sdpa_blocked(q.to(card), k.to(card), v.to(card), causal,
+                               chunk=128).float().cpu()
+    dense = layers._sdpa_dense(q.to(card), k.to(card), v.to(card),
+                               causal).float().cpu()
+    bound = 2 ** -6 * float(v.float().abs().max())
+    assert float((gpu - cpu).abs().max()) <= bound
+    assert float((gpu - dense).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("arch", ["paper-gpt2", "zamba2-7b"])
+def test_engine_on_the_card_equals_the_cpu(card, arch):
+    """Reduced float32, temperature 0, staggered ragged prompts: the
+    engine's tokens on the card equal the CPU's."""
+    cfg = configs.reduced(configs.get(arch))
+    params = init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 9, 12)]
+    runs = []
+    for p in (params, _to(params, card)):
+        eng = ServeEngine(cfg, p, max_seq=40, max_slots=2, prefix_block=8)
+        runs.append(eng.run([(q, SamplingParams(max_new_tokens=6))
+                             for q in prompts]))
+        assert eng.device.type == p["final_norm"].device.type
+    assert {k: list(v) for k, v in runs[0].items()} == \
+        {k: list(v) for k, v in runs[1].items()}
+
+
+@pytest.mark.parametrize("arch,spec", [("paper-gpt2", 0), ("paper-gpt2", 2),
+                                       ("zamba2-7b", 0)])
+def test_decode_dispatch_never_waits_on_the_card(card, arch, spec):
+    """One fused decode (a speculative verify with ``spec``) on the card
+    under ``torch.cuda.set_sync_debug_mode("error")``: building the
+    per-tick tables and tokens and running every layer wait on the card
+    nowhere; the dispatch's one wait is the logits' copy to the host."""
+    cfg = configs.reduced(configs.get(arch))
+    eng = ServeEngine(cfg, init_params(cfg, 0, "cuda"), max_seq=40,
+                      max_slots=2, spec_decode=spec)
+    eng.submit(np.arange(1, 10, dtype=np.int32),
+               SamplingParams(max_new_tokens=8))
+    eng.step()                                    # prefill + one decode
+    slots = eng.pool.slots
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if eng.paged:
+            lengths = np.full((slots,), eng.pool.blocks_per_seq
+                              * eng.pool.block_size, np.int32)
+            lengths[0] = 10
+            cache = eng.pool.cache_view(lengths)
+        else:
+            cache = eng.pool.cache
+        if spec:
+            toks = eng._dev(np.zeros((slots, spec + 1), np.int32))
+            logits, _ = eng._verify(eng.params, cache, toks,
+                                    eng._verify_idx_dev)
+        else:
+            toks = eng._dev(eng.last_tokens[:, None])
+            logits, _ = eng._decode(eng.params, cache, toks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())

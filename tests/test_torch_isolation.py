@@ -43,7 +43,12 @@ PORTED = ("repro_torch.kernels.instrumented_matmul",
           "repro_torch.core.capture", "repro_torch.core.tools.roofline",
           "repro_torch.launch.quickstart", "repro_torch.configs.qwen3_32b",
           "repro_torch.configs.kimi_k2_1t_a32b",
-          "repro_torch.configs.musicgen_large")
+          "repro_torch.configs.musicgen_large", "repro_torch.serve",
+          "repro_torch.serve.cache", "repro_torch.serve.scheduler",
+          "repro_torch.serve.slo", "repro_torch.serve.traffic",
+          "repro_torch.serve.faults", "repro_torch.serve.draft",
+          "repro_torch.serve.engine", "repro_torch.core.tools.serving",
+          "repro_torch.launch.serve")
 
 
 @pytest.fixture(autouse=True)
@@ -87,3 +92,18 @@ def test_quickstart_defaults_to_the_card():
     from repro_torch.launch import quickstart
     with pytest.raises((RuntimeError, AssertionError)):
         quickstart.run(configs.reduced(configs.get("paper-gpt2")))
+
+
+def test_serve_launcher_defaults_to_the_card():
+    """``python -m repro_torch.launch.serve`` without ``--device`` builds
+    its weights on CUDA: it fails here rather than serving on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the launcher would serve")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", "paper-gpt2", "--reduced",
+                        "--num-requests", "1", "--max-new-tokens", "1"],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode != 0
+    assert "CUDA" in r.stderr or "cuda" in r.stderr
+    assert "[serve] 1 requests" not in r.stdout

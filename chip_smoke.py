@@ -87,9 +87,26 @@ non-zero and print no result):
                 one KV-head group; zamba2-7b at full width and depth (4
                 requests, 2 slots, the slot pool); then reduced paper-gpt2
                 (paged), mamba2-2.7b, zamba2-7b and dbrx-132b in float32,
-                the card's tokens against the CPU's.
+                the card's tokens against the CPU's;
+ 13. dist     — (run last) distributed training on one NCCL rank per
+                card, spawned with a ``FileStore`` and a timeout on the
+                join; the ranks' launches of the four kernels must be 0.
+                With one card: each collective of ``dist/collectives.py``
+                on the world-1 group against its plain version (exact),
+                one stablelm-1.6b step on a (1, 1) mesh against the plain
+                step (bit for bit), and ``repro_torch.launch.train`` on
+                stablelm-1.6b (full width and depth unless the disk cannot
+                hold two checkpoints), 4 steps with a checkpoint every 2
+                and a failure at step 3, whose losses must equal an
+                uninterrupted run's bit for bit (deterministic algorithms);
+                the multi-rank collectives are not exercised at world 1.
+                With four: glm4-9b at full width and depth on data 2 x
+                model 2 (3 steps, one captured step's NCCL kernels and
+                wire bytes), stablelm-1.6b on pod 2 x data 2 in the three
+                explicit sync modes against the single-card step, and the
+                GPipe ring on pipe 4 against the layers in sequence.
 
-Every time and memory size of phases 9-12 is printed beside the card's
+Every time and memory size of phases 9-13 is printed beside the card's
 name and power limit.  Then one JSON line of kernels, the card's name and
 power limit, and the result line.  Launch counts are reset just before
 each path runs and read just after; the comparisons of phases 4 and 6 run
@@ -1607,6 +1624,474 @@ def phase_serving() -> None:
         free_card()
 
 
+# ----------------------------------------------------------------- phase 13
+DIST_TIMEOUT_S = 900            # the ranks' join, every part included
+#: card against itself, float32 weights and moments: stablelm-1.6b's
+#: checkpoint is its weights and two moments, 12 bytes a parameter
+CKPT_BYTES_PER_PARAM = 12
+#: tests/test_torch_dist.py's bounds on an explicit sync mode's step
+#: against the single-device step (the reference's, tests/test_dist.py)
+SYNC_LOSS_ATOL, SYNC_GNORM_RTOL = 2e-3, 2e-2
+PIPE_ATOL = 1e-5                # the reference's pipeline bound
+
+
+def _card_batch(cfg, device, batch=2, seq=64) -> dict:
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    return {k: torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                             dtype=torch.int32, device=device)
+            for k in ("inputs", "labels")}
+
+
+def _max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.
+
+
+def _dist_collectives() -> dict:
+    """Each collective of ``dist/collectives.py`` on the world-1 NCCL
+    group against its plain version: the payload itself, or the numpy
+    mirror of the int8 round trip (``simulate_compressed_psum``, n = 1)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist import collectives as C
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {}
+    for name, shape in (("grad", (2048, 2048)), ("ragged", (1000, 37))):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        sim = torch.from_numpy(C.simulate_compressed_psum(
+            x.cpu().numpy()[None])).cuda()
+        errs[f"{name} compressed_psum"] = _max_err(C.compressed_psum(x, None),
+                                                   sim)
+        errs[f"{name} plain_psum"] = _max_err(C.plain_psum(x, None), x)
+        errs[f"{name} psum_start/wait"] = _max_err(
+            C.psum_wait(C.psum_start(x, None), None), x)
+        errs[f"{name} psum_start/wait int8"] = _max_err(
+            C.psum_wait(C.psum_start(x, None, compressed=True), None), sim)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("pod", "data"))
+    tree = {"g": torch.ones(3, device="cuda")}
+    errs["make_pod_sync (pod 1) is the identity"] = float(
+        C.make_pod_sync(mesh, compressed=True)(tree)["g"] is not tree["g"])
+    return errs
+
+
+def _mesh_step_equals_plain(cfg) -> dict:
+    """One train step of ``cfg`` plain and on a (1, 1) data × model mesh
+    (DTensor parameters, optimizer state and batch), from the same
+    weights: metrics and every updated weight compared bit for bit."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.train.trainer import (batch_shardings, place,
+                                           train_shardings)
+    opt_cfg = OptConfig()
+    batch = _card_batch(cfg, "cuda")
+    params = init_params(cfg, SEED, "cuda")
+    t0 = time.perf_counter()
+    p1, o1, m1 = make_train_step(cfg, opt_cfg)(
+        params, init_opt_state(params, opt_cfg), batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del params, o1
+    free_card()
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    set_mesh(mesh)
+    try:
+        p_sh, _o, _p, _q = train_shardings(mesh, cfg, opt_cfg)
+        params = place(init_params(cfg, SEED, "cuda"), p_sh, mesh)
+        db = place(batch, batch_shardings(mesh, batch), mesh)
+        t0 = time.perf_counter()
+        p2, o2, m2 = make_train_step(cfg, opt_cfg)(
+            params, init_opt_state(params, opt_cfg), db)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        differ = [".".join(path) for (path, a), (_q, b) in zip(
+            tree_paths(p1), tree_paths(p2)) if not torch.equal(a, b.to_local())]
+        metrics = [k for k in m1 if not torch.equal(m1[k], m2[k])]
+    finally:
+        set_mesh(None)
+    del params, p1, p2, o2
+    free_card()
+    return {"differ": differ,
+            "metrics_differ": metrics, "loss": float(m1["loss"]),
+            "plain_s": plain_s, "mesh_s": mesh_s}
+
+
+def _driver_restart(tmp: str) -> dict:
+    """``repro_torch.launch.train`` on stablelm-1.6b (full unless the disk
+    cannot hold two checkpoints): 4 steps with a checkpoint every 2 and a
+    failure injected at step 3, then 4 uninterrupted steps."""
+    import shutil
+    from repro_torch.launch import train as tl
+    from repro_torch.train import checkpoint as ckpt
+    cfg = configs.get("stablelm-1.6b")
+    need = 2 * CKPT_BYTES_PER_PARAM * cfg.n_params
+    free = shutil.disk_usage(tmp).free
+    reduced = free < 1.1 * need
+    common = ["--arch", cfg.name, "--device", "cuda", "--steps", "4",
+              "--seq-len", "64", "--global-batch", "2",
+              "--pasta-tools", "kernel_freq"] + (["--reduced"] if reduced
+                                                 else [])
+    times = {"save": [], "restore": []}
+    orig = {"save": ckpt.save, "restore": ckpt.restore}
+
+    def timed_io(name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*a, **kw)
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    d = os.path.join(tmp, "ckpt")
+    ckpt.save, ckpt.restore = timed_io("save"), timed_io("restore")
+    try:
+        hit = tl.run(tl.parse_args(common + [
+            "--ckpt-dir", d, "--ckpt-every", "2", "--inject-failure-at",
+            "3"]))
+    finally:
+        ckpt.save, ckpt.restore = orig["save"], orig["restore"]
+    step_dir = os.path.join(d, "step_00000002")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    shutil.rmtree(d)
+    restarts, seen = hit["restarts"], hit["losses"]
+    names = [n[:72] for n, _c in hit["reports"]["kernel_freq"]["top"][:3]]
+    del hit
+    free_card()
+    whole = tl.run(tl.parse_args(common))
+    want = whole["losses"]
+    del whole
+    free_card()
+    by_step, replay_equal = {}, True
+    for s, loss in seen:
+        replay_equal &= by_step.setdefault(s, loss) == loss
+    return {"reduced": reduced, "free_gb": free / 1e9, "need_gb": need / 1e9,
+            "restarts": restarts, "seen": seen, "uninterrupted": want,
+            "replay_equal": replay_equal,
+            "equal": [by_step.get(s) for s, _l in want] == [l for _s, l
+                                                           in want],
+            "save_s": times["save"], "restore_s": times["restore"],
+            "ckpt_bytes": nbytes, "top_kernels": names}
+
+
+def _dist_one_card(tmp: str) -> dict:
+    return {"collectives": _dist_collectives(),
+            "mesh_step": _mesh_step_equals_plain(
+                configs.get("stablelm-1.6b")),
+            "driver": _driver_restart(tmp)}
+
+
+def _sync_barrier() -> None:
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+
+
+def _four_glm4(rank: int) -> dict:
+    """glm4-9b at full width and depth on data 2 × model 2: three steps,
+    then one captured step (its NCCL kernels and wire bytes)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.train.trainer import (batch_shardings, place,
+                                           train_shardings)
+    cfg = configs.get("glm4-9b")
+    dev = f"cuda:{rank}"
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    set_mesh(mesh)
+    try:
+        opt_cfg = OptConfig()
+        p_sh, _o, _p, _q = train_shardings(mesh, cfg, opt_cfg)
+        params = place(init_params(cfg, SEED, dev), p_sh, mesh)
+        free_card()
+        opt = init_opt_state(params, opt_cfg)
+        batch = _card_batch(cfg, dev)
+        db = place(batch, batch_shardings(mesh, batch), mesh)
+        step = make_train_step(cfg, opt_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        secs, losses = [], []
+        for _ in range(3):
+            _sync_barrier()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, db)
+            losses.append(float(m["loss"]))
+            _sync_barrier()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        with pasta.Session(tools="kernel_freq", name="dist") as session:
+            art = capture.capture_step(step, params, opt, db)
+            stats = session.capture_compiled(art, label="train_step",
+                                             default_trip=cfg.n_layers,
+                                             steps=1)
+            kf = session.reports()["kernel_freq"]
+        nccl = {}
+        for inst in stats.collective_instances:
+            nccl[inst["name"]] = nccl.get(inst["name"], 0) + 1
+        out = {"secs": secs, "losses": losses, "peak_gb": peak / 1e9,
+               "nccl_kernels": nccl,
+               "wire_bytes": dict(stats.collective_wire_bytes),
+               "collective_bytes": dict(stats.collective_bytes),
+               "kernel_freq_total": kf["total_invocations"],
+               "kernel_freq_distinct": kf["distinct_kernels"],
+               "capture_s": art.seconds, "lost": art.lost}
+    finally:
+        set_mesh(None)
+    del params, opt
+    free_card()
+    return out
+
+
+def _four_sync(rank: int) -> dict:
+    """stablelm-1.6b on pod 2 × data 2 in the three explicit sync modes,
+    each against the single-card step on the same weights and batch."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.train.trainer import (batch_shardings, place,
+                                           train_shardings)
+    cfg = configs.get("stablelm-1.6b")
+    dev = f"cuda:{rank}"
+    opt_cfg = OptConfig()
+    batch = _card_batch(cfg, dev)
+    params = init_params(cfg, SEED, dev)
+    step = make_train_step(cfg, opt_cfg)
+    _p, _o, m = step(params, init_opt_state(params, opt_cfg), batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p0, _o, m0 = step(params, init_opt_state(params, opt_cfg), batch)
+    torch.cuda.synchronize()
+    out = {"single": {"loss": float(m0["loss"]),
+                      "grad_norm": float(m0["grad_norm"]),
+                      "s": time.perf_counter() - t0}}
+    del _p, _o, m, params
+    free_card()
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("pod", "data"))
+    set_mesh(mesh)
+    try:
+        p_sh, _s, _a, _b = train_shardings(mesh, cfg, opt_cfg)
+        dp = place(init_params(cfg, SEED, dev), p_sh, mesh)
+        db = place(batch, batch_shardings(mesh, batch, include_pod=False),
+                   mesh)
+        for name, ov, comp in (("blocking", False, False),
+                               ("overlap", True, False),
+                               ("overlap_int8", True, True)):
+            step = make_train_step(cfg, opt_cfg, overlap_sync=ov,
+                                   sync_compressed=comp)
+            secs = []
+            for _ in range(2):
+                opt = init_opt_state(dp, opt_cfg)
+                _sync_barrier()
+                t0 = time.perf_counter()
+                p2, _o2, m2 = step(dp, opt, db)
+                _sync_barrier()
+                secs.append(time.perf_counter() - t0)
+            dparam = max(_max_err(p2_leaf.full_tensor(), p0_leaf)
+                         for (_q, p2_leaf), (_r, p0_leaf)
+                         in zip(tree_paths(p2), tree_paths(p0)))
+            out[name] = {"loss": float(m2["loss"]),
+                         "grad_norm": float(m2["grad_norm"]),
+                         "secs": secs, "max_param_diff": dparam}
+            del p2, _o2, opt
+            free_card()
+    finally:
+        set_mesh(None)
+    return out
+
+
+def _four_pipeline(rank: int) -> dict:
+    """The GPipe ring on pipe 4 (8 layers of tanh(x @ w), 2048 wide, 8
+    microbatches of 16 rows) against the same layers run in sequence on
+    one card, forward and gradients."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.pipeline import make_pipelined_fn
+    dev = f"cuda:{rank}"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ws0 = torch.randn((8, 2048, 2048), generator=gen, device=dev) * 0.02
+    xs = torch.randn((8, 16, 2048), generator=gen, device=dev)
+
+    def block(w, x):
+        return torch.tanh(x @ w)
+
+    mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("pipe",))
+    fn = make_pipelined_fn(mesh, block, 4, 2)
+    ws = ws0.clone().requires_grad_(True)
+    _sync_barrier()
+    t0 = time.perf_counter()
+    ys = fn(ws, xs)
+    ys.sum().backward()
+    _sync_barrier()
+    pipe_s = time.perf_counter() - t0
+    grad = ws.grad.clone()
+    torch.distributed.all_reduce(grad)
+    wseq = ws0.clone().requires_grad_(True)
+    want = []
+    for mb in xs:
+        y = mb
+        for i in range(8):
+            y = block(wseq[i], y)
+        want.append(y)
+    want = torch.stack(want)
+    want.sum().backward()
+    return {"fwd_err": _max_err(ys.detach(), want.detach()),
+            "grad_err": _max_err(grad, wseq.grad), "s": pipe_s}
+
+
+def _dist_rank(rank: int, world: int, tmp: str) -> None:
+    # deterministic kernels, so that two runs of a step agree bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from repro_torch.launch import train as tl
+    tl.init_rank(rank, world, os.path.join(tmp, "store"), "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        if world == 1:
+            out = _dist_one_card(tmp)
+        else:
+            out = {"glm4": _four_glm4(rank), "sync": _four_sync(rank),
+                   "pipeline": _four_pipeline(rank)}
+        out["launches"] = dict(ops.launches)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_dist() -> dict:
+    """Phase 13: distributed training on one NCCL rank per card (4 when
+    the machine has four, else 1).  Returns the kernels' launches on this
+    path, summed over the ranks."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    global CARD
+    if not CARD:
+        CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    world = 4 if torch.cuda.device_count() >= 4 else 1
+    free_card()
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"dist: {world} NCCL rank(s), one per card; free disk "
+              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB at the "
+              f"checkpoint directory", flush=True)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dist_rank, args=(world, tmp),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(1.0,
+                                           deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    fail(f"dist: ranks still running after "
+                         f"{DIST_TIMEOUT_S} s")
+        except ProcessException as e:
+            fail(f"dist: a rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        secs = time.perf_counter() - t0
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    launches = {}
+    for r in res:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"dist: the ranks took {secs:.1f} s; trace kernel launches on "
+          f"this path {launches}; peak device memory per card "
+          f"{[round(r['peak_gb'], 2) for r in res]} GB, on {CARD}",
+          flush=True)
+    if any(launches.values()):
+        fail(f"dist: a trace kernel launched on the train path: {launches}")
+    (_dist_report_one if world == 1 else _dist_report_four)(res)
+    return launches
+
+
+def _dist_report_one(res) -> None:
+    r = res[0]
+    errs = r["collectives"]
+    print(f"dist collectives on a world-1 NCCL group, each against its "
+          f"plain version (max |difference|): {errs}; world size 1: the "
+          f"multi-rank collectives (more than one participant) were not "
+          f"exercised", flush=True)
+    if any(errs.values()):
+        fail(f"dist: a world-1 collective differs from its plain version: "
+             f"{errs}")
+    ms = r["mesh_step"]
+    print(f"dist: stablelm-1.6b full width and depth, one train step on a "
+          f"(1, 1) data x model mesh (DTensors) against the plain step: "
+          f"{len(ms['differ'])} weight leaves and metrics "
+          f"{ms['metrics_differ']} differ (bit for bit); loss "
+          f"{ms['loss']!r}; step {ms['plain_s'] * 1e3:.1f} ms plain, "
+          f"{ms['mesh_s'] * 1e3:.1f} ms on the mesh (first calls), on "
+          f"{CARD}", flush=True)
+    if ms["differ"] or ms["metrics_differ"]:
+        fail(f"dist: the (1, 1) mesh step differs from the plain step: "
+             f"{ms['differ'][:5]} {ms['metrics_differ']}")
+    d = r["driver"]
+    size = ("REDUCED (cut: the disk holds fewer than two full "
+            f"checkpoints, {d['free_gb']:.1f} of {d['need_gb']:.1f} GB)"
+            if d["reduced"] else "full width and depth")
+    print(f"dist: repro_torch.launch.train on stablelm-1.6b {size}, batch "
+          f"2 x 64, 4 steps, checkpoint every 2, failure injected at step "
+          f"3: restarts {d['restarts']}, losses as logged {d['seen']}, "
+          f"uninterrupted {d['uninterrupted']}; replayed step equal "
+          f"{d['replay_equal']}, equal to the uninterrupted run bit for bit "
+          f"{d['equal']}; checkpoint {d['ckpt_bytes'] / 1e9:.3f} GB, save "
+          f"{[round(t, 2) for t in d['save_s']]} s, restore "
+          f"{[round(t, 2) for t in d['restore_s']]} s; captured step's top "
+          f"kernels {d['top_kernels']}; on {CARD}", flush=True)
+    if d["restarts"] != 1 or not d["replay_equal"] or not d["equal"]:
+        fail("dist: the restarted run's losses differ from the "
+             "uninterrupted run's")
+
+
+def _dist_report_four(res) -> None:
+    g = [r["glm4"] for r in res]
+    print(f"dist: glm4-9b full width and depth on data 2 x model 2, batch "
+          f"2 x 64, 3 steps: losses {g[0]['losses']}, step times per card "
+          f"{[[round(t * 1e3, 1) for t in x['secs']] for x in g]} ms, peak "
+          f"memory per card over the steps "
+          f"{[round(x['peak_gb'], 2) for x in g]} GB; one captured step: "
+          f"NCCL kernels {g[0]['nccl_kernels']} (COLLECTIVE events), "
+          f"collective_wire_bytes {g[0]['wire_bytes']}, collective_bytes "
+          f"{g[0]['collective_bytes']}, kernel_freq total "
+          f"{g[0]['kernel_freq_total']} distinct "
+          f"{g[0]['kernel_freq_distinct']} (compute kernels: collectives "
+          f"are not kernel launches, as in the reference's walker); "
+          f"capture {g[0]['capture_s']:.2f} "
+          f"s, lost records {g[0]['lost']}; on {CARD}", flush=True)
+    if not all(np.isfinite(x["losses"]).all() for x in g):
+        fail("dist: glm4-9b losses not finite")
+    if not g[0]["nccl_kernels"] or not g[0]["wire_bytes"]:
+        fail("dist: the captured sharded step recorded no NCCL kernel")
+    s = res[0]["sync"]
+    single = s["single"]
+    for name in ("blocking", "overlap", "overlap_int8"):
+        m = s[name]
+        print(f"dist: stablelm-1.6b full width and depth on pod 2 x data "
+              f"2, {name} pod sync: loss {m['loss']!r} (single card "
+              f"{single['loss']!r}), grad_norm {m['grad_norm']!r} (single "
+              f"{single['grad_norm']!r}), largest weight difference after "
+              f"the step {m['max_param_diff']:.3e}; step "
+              f"{[round(t * 1e3, 1) for t in m['secs']]} ms (single card "
+              f"{single['s'] * 1e3:.1f} ms); on {CARD}", flush=True)
+        if abs(m["loss"] - single["loss"]) >= SYNC_LOSS_ATOL or \
+                abs(m["grad_norm"] - single["grad_norm"]) >= \
+                SYNC_GNORM_RTOL * max(single["grad_norm"], 1):
+            fail(f"dist: {name} sync step outside the bounds")
+    p = res[0]["pipeline"]
+    print(f"dist: GPipe ring on pipe 4 (8 layers of tanh(x @ w) at 2048, 8 "
+          f"microbatches of 16): forward max |difference| from the layers "
+          f"in sequence {p['fwd_err']:.3e}, gradient {p['grad_err']:.3e} "
+          f"(limit {PIPE_ATOL:g}); forward and backward "
+          f"{p['s'] * 1e3:.1f} ms; on {CARD}", flush=True)
+    if p["fwd_err"] >= PIPE_ATOL or p["grad_err"] >= PIPE_ATOL:
+        fail("dist: the pipeline differs from the sequential layers")
+
+
 def profiler_probe(when: str) -> None:
     """Print how many of one fill's and one negation's two device records
     a profiler session keeps (a short session late in this process has
@@ -1646,6 +2131,9 @@ def main() -> None:
     rows["object_histogram"]["launches_by_path"].update(phase_quickstart())
     profiler_probe("after the captures")
     phase_serving()
+    dist_launches = phase_dist()
+    for row in kernels:
+        row["launches_dist"] = dist_launches.get(row["name"], 0)
     for name in ("trace_aggregate", "object_histogram"):
         rows[name]["launches"] = sum(rows[name]["launches_by_path"].values())
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -32,8 +32,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.instrument import op_hook
+from repro_torch.dist.sharding import einsum, shard
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -145,16 +147,31 @@ def init_attention(cfg: ModelConfig, lead: tuple, gen: torch.Generator,
     return p
 
 
+def attention_param_axes() -> dict:
+    """Logical sharding axes of one attention block's weights."""
+    return {
+        "wq": ("p_embed", "p_heads", None),
+        "wk": ("p_embed", "p_kv_heads", None),
+        "wv": ("p_embed", "p_kv_heads", None),
+        "wo": ("p_heads", None, "p_embed"),
+        "q_norm": (None,),
+        "k_norm": (None,),
+    }
+
+
 def _qkv(p, x, cfg: ModelConfig, positions):
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.rmsnorm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.rmsnorm_eps)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.m_rope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.m_rope)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     op_hook("attn.qkv_proj", (x, p["wq"], p["wk"], p["wv"]), (q, k, v))
     return q, k, v
 
@@ -172,7 +189,7 @@ def _sdpa_dense(q, k, v, causal: bool, q_offset=0,
     with NEG_INF, weights cast back to q's dtype before the PV product.
     ``q_offset``: absolute position of query 0 (a slice of the queries)."""
     scale = _rounded(1.0 / math.sqrt(q.shape[-1]), softmax_dtype)
-    scores = torch.einsum("bshgd,bthd->bhgst", q, k).to(softmax_dtype) \
+    scores = einsum("bshgd,bthd->bhgst", q, k).to(softmax_dtype) \
         * scale
     if causal:
         s_len, t_len = scores.shape[-2], scores.shape[-1]
@@ -182,7 +199,7 @@ def _sdpa_dense(q, k, v, causal: bool, q_offset=0,
     m = scores.amax(dim=-1, keepdim=True).detach()   # stop_gradient
     p = torch.exp(scores - m)
     w = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
-    out = torch.einsum("bhgst,bthd->bshgd", w, v)
+    out = einsum("bhgst,bthd->bshgd", w, v)
     return out.reshape(*out.shape[:2], -1, out.shape[-1])    # (B,S,H,D)
 
 
@@ -204,7 +221,7 @@ def _sdpa_blocked(q, k, v, causal: bool, chunk: int = 1024):
     l = torch.zeros((b, hkv, g, s), **f32)
     for c0 in range(0, t, chunk):
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        sc = torch.einsum("bshgd,bthd->bhgst", q, kc).to(torch.float32) \
+        sc = einsum("bshgd,bthd->bhgst", q, kc).to(torch.float32) \
             * scale
         if causal:
             ki = c0 + torch.arange(chunk, device=q.device)[None, :]
@@ -213,7 +230,7 @@ def _sdpa_blocked(q, k, v, causal: bool, chunk: int = 1024):
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
+        acc = acc * corr[..., None] + einsum(
             "bhgst,bthd->bhgsd", p.to(q.dtype), vc).to(torch.float32)
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
@@ -231,7 +248,7 @@ def _sdpa_decode_partial(q, k_cache, v_cache, lengths, base=None):
     it every query shares the (B,)-length mask (one-token decode, which
     ``base`` reproduces exactly at S=1)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bshgd,bthd->bhgst", q, k_cache) \
+    scores = einsum("bshgd,bthd->bhgst", q, k_cache) \
         .to(torch.float32) * scale
     t = k_cache.shape[1]
     s = q.shape[1]
@@ -247,7 +264,7 @@ def _sdpa_decode_partial(q, k_cache, v_cache, lengths, base=None):
     m = scores.amax(dim=-1)                                  # (B,H,G,S)
     p = torch.exp(scores - m[..., None])
     l = p.sum(dim=-1)
-    acc = torch.einsum("bhgst,bthd->bhgsd", p.to(q.dtype),
+    acc = einsum("bhgst,bthd->bhgsd", p.to(q.dtype),
                        v_cache).to(torch.float32)
     return acc, m, l
 
@@ -325,6 +342,20 @@ def paged_plan(bt: torch.Tensor, base: torch.Tensor, s: int,
             "gather": torch.clamp(bt.long(), max=n_blocks - 1)}
 
 
+def _per_shard(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's block of the DTensors ``q``, ``k``,
+    ``v`` (batch over its data dimensions; heads over ``model`` where the
+    KV heads divide, query heads with them), the way the reference's
+    attention runs inside each shard: every (row, KV-head group) is
+    independent, and DTensor cannot flatten two sharded dimensions into
+    the batch of a batched matmul."""
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    mesh, pl = k.device_mesh, k.placements
+    out = fn(q.redistribute(mesh, pl).to_local(), k.to_local(),
+             v.redistribute(mesh, pl).to_local())
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, cache: dict | None = None,
               blocked_threshold: int | None = None):
@@ -337,15 +368,18 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if blocked_threshold is None:
         blocked_threshold = cfg.attn_blocked_threshold
     q, k, v = _qkv(p, x, cfg, positions)
-    qg = _group(q, cfg.n_kv_heads)
     b, s = x.shape[0], x.shape[1]
     if cache is None:
-        if s > blocked_threshold:
-            out = _sdpa_blocked(qg, k, v, cfg.causal)
-        else:
-            out = _sdpa_dense(
+        def sdpa(q, k, v):
+            qg = _group(q, k.shape[2])
+            if s > blocked_threshold:
+                return _sdpa_blocked(qg, k, v, cfg.causal)
+            return _sdpa_dense(
                 qg, k, v, cfg.causal,
                 softmax_dtype=torch_dtype(cfg.attn_softmax_dtype))
+
+        out = _per_shard(sdpa, q, k, v) if isinstance(q, DTensor) \
+            else sdpa(q, k, v)
         new_cache = {"k": k, "v": v,
                      "length": torch.full((b,), s, dtype=torch.int32,
                                           device=x.device)}
@@ -359,6 +393,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
         # table at base..base+S-1; the softmax gathers the row's window
         # back as a contiguous (B, T) view, the values the dense slot
         # layout would hold
+        qg = _group(q, cfg.n_kv_heads)
         pk, pv, bt = cache["pk"], cache["pv"], cache["bt"]
         base = cache["length"]
         n_blocks, bs_blk = pk.shape[0], pk.shape[1]
@@ -378,17 +413,22 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
         # pool interleaves requests at different positions; a multi-token
         # append is chunked prefill or a speculative verify); positions at
         # or past max_seq (parked rows, draft spill) drop
+        qg = _group(q, cfg.n_kv_heads)
         k_cache, v_cache = cache["k"], cache["v"]
         base = cache["length"]
         t = k_cache.shape[1]
         plan = cache.get("plan") or dense_plan(base, s, t)
         put(k_cache.view(-1, *k_cache.shape[2:]), plan, k.flatten(0, 1))
         put(v_cache.view(-1, *v_cache.shape[2:]), plan, v.flatten(0, 1))
+        k_cache = shard(k_cache, "batch", "seq_sp", None, "head_dim")
+        v_cache = shard(v_cache, "batch", "seq_sp", None, "head_dim")
         lengths = base + s
         out = _sdpa_decode(qg, k_cache, v_cache, lengths, base=base)
         new_cache = {"k": k_cache, "v": v_cache, "length": lengths}
+    out = shard(out, "batch", "seq", "heads", "head_dim")
     op_hook("attn.sdpa", (q, k, v), (out,))
-    y = torch.einsum("bshd,hdm->bsm", out, p["wo"].to(x.dtype))
+    y = einsum("bshd,hdm->bsm", out, p["wo"].to(x.dtype))
+    y = shard(y, "batch", "seq", "embed")
     op_hook("attn.out_proj", (out, p["wo"]), (y,))
     return y, new_cache
 
@@ -406,12 +446,21 @@ def init_mlp(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
     }
 
 
+def mlp_param_axes() -> dict:
+    """Logical sharding axes of one GLU MLP's weights."""
+    return {"w_gate": ("p_embed", "p_ff"), "w_up": ("p_embed", "p_ff"),
+            "w_down": ("p_ff", "p_embed")}
+
+
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+    g = einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
+    u = einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+    g = shard(g, "batch", "seq", "ff")
+    u = shard(u, "batch", "seq", "ff")
     act = _gelu(g) if cfg.mlp == "geglu" else _silu(g)
     h = act * u
-    y = torch.einsum("bsf,fd->bsd", h, p["w_down"].to(dt))
+    y = einsum("bsf,fd->bsd", h, p["w_down"].to(dt))
+    y = shard(y, "batch", "seq", "embed")
     op_hook("mlp.glu", (x, p["w_gate"], p["w_up"], p["w_down"]), (g, u, y))
     return y

@@ -28,8 +28,10 @@ import contextlib
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.instrument import capturing, op_hook
+from repro_torch.dist.sharding import einsum, shard, take_rows
 from .config import ModelConfig
 from . import layers as L
 from . import mamba2 as M
@@ -54,7 +56,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     laid out as the reference's ``init_params`` lays them out."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg.param_dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device (shapes only) has no generator: draw from the CPU's
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device).manual_seed(seed)
     n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
     p: dict = {}
     if cfg.frontend == "none":
@@ -92,6 +96,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
                        "attn": L.init_attention(cfg, (), gen, dt, device),
                        "mlp": L.init_mlp(cfg, (), gen, dt, device)}
     return p
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical sharding axes mirroring the parameter tree (a leading
+    ``"p_layers"`` per stacked axis)."""
+    def stack(d, extra=1):
+        return {k: stack(v, extra) if isinstance(v, dict)
+                else ("p_layers",) * extra + tuple(v) for k, v in d.items()}
+
+    axes: dict = {"final_norm": (None,)}
+    if cfg.frontend == "none":
+        axes["embed"] = ("p_vocab", "p_embed")
+    if not cfg.tie_embeddings and cfg.vocab_size:
+        axes["lm_head"] = ("p_embed", "p_vocab")
+    attn = L.attention_param_axes()
+    if cfg.qk_norm is False:
+        attn = {k: v for k, v in attn.items() if k not in ("q_norm",
+                                                            "k_norm")}
+    blk_attn = {"ln1": (None,), "ln2": (None,), "attn": attn}
+    mamba = {"ln": (None,), "mamba": M.mamba2_param_axes()}
+    if cfg.family in ("dense", "vlm", "audio"):
+        axes["layers"] = stack({**blk_attn, "mlp": L.mlp_param_axes()})
+    elif cfg.family == "moe":
+        axes["layers"] = stack({**blk_attn, "moe": MOE.moe_param_axes(cfg)})
+    elif cfg.family == "ssm":
+        axes["layers"] = stack(mamba)
+    elif cfg.family == "hybrid":
+        axes["groups"] = stack(mamba, extra=2)
+        if cfg.n_layers % cfg.shared_attn_every:
+            axes["tail"] = stack(mamba)
+        axes["shared"] = {**blk_attn, "mlp": L.mlp_param_axes()}
+    return axes
 
 
 def _tree_at(tree: dict, i: int) -> dict:
@@ -236,11 +272,12 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
     check_supported(cfg)
     dt = L.torch_dtype(cfg.dtype)
     if inputs.dim() == 2 and cfg.frontend == "none":
-        h = params["embed"].to(dt)[inputs]
+        h = take_rows(params["embed"].to(dt), inputs)
         op_hook("embed.lookup", (inputs, params["embed"]), (h,))
     else:
         h = inputs.to(dt)
     b, s = h.shape[0], h.shape[1]
+    h = shard(h, "batch", "seq", "embed")
     if positions is None:
         arange = torch.arange(s, device=h.device)[None, :]
         if cache is not None:
@@ -261,11 +298,12 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
             idx = idx[:, None]
         h = torch.gather(h, 1, idx[..., None].expand(-1, -1, h.shape[-1]))
     if cfg.tie_embeddings and "embed" in params:
-        logits = torch.einsum("bsd,vd->bsv", h, params["embed"].to(dt))
+        logits = einsum("bsd,vd->bsv", h, params["embed"].to(dt))
     elif "lm_head" in params:
-        logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"].to(dt))
+        logits = einsum("bsd,dv->bsv", h, params["lm_head"].to(dt))
     else:
         logits = h
+    logits = shard(logits, "batch", "seq", "vocab")
     op_hook("lm_head", (h,), (logits,))
     return logits, new_cache
 
@@ -382,7 +420,14 @@ def _run_hybrid(params, h, cfg, positions, cache=None, return_cache=False):
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 1e-4):
-    """Mean next-token CE in f32 (+ z-loss for logit drift)."""
+    """Mean next-token CE in f32 (+ z-loss for logit drift).  A DTensor's
+    vocab dimension is replicated first: DTensor's gather over a sharded
+    class dimension fails."""
+    if isinstance(logits, DTensor):
+        last = logits.dim() - 1
+        logits = logits.redistribute(placements=[
+            Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in logits.placements])
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]

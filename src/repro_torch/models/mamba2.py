@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.instrument import op_hook
+from repro_torch.dist.sharding import einsum, shard
 from .config import ModelConfig
 from .layers import _silu, normal_init, rmsnorm
 
@@ -51,6 +52,20 @@ def init_mamba2(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
         "D": torch.ones((*lead, nh), **f32),
         "norm": torch.zeros((*lead, di), dtype=dtype, device=device),
         "w_out": normal((di, d), 1.0 / math.sqrt(di)),
+    }
+
+
+def mamba2_param_axes() -> dict:
+    """Logical sharding axes of one Mamba2 layer's weights."""
+    return {
+        "w_z": ("p_embed", "p_ssm_inner"), "w_x": ("p_embed", "p_ssm_inner"),
+        "w_B": ("p_embed", None), "w_C": ("p_embed", None),
+        "w_dt": ("p_embed", "p_ssm_inner"),
+        "conv_x": (None, "p_ssm_inner"), "conv_B": (None, None),
+        "conv_C": (None, None),
+        "A_log": ("p_ssm_inner",), "dt_bias": ("p_ssm_inner",),
+        "D": ("p_ssm_inner",), "norm": ("p_ssm_inner",),
+        "w_out": ("p_ssm_inner", "p_embed"),
     }
 
 
@@ -113,13 +128,13 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     L = _segsum(dA_h)                                     # (b,nc,h,q,q)
 
     # intra-chunk (the "attention-like" quadratic-in-Q term)
-    scores = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
+    scores = einsum("bcihn,bcjhn->bchij", Cc, Bc)
     scores = scores * L * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
-    y_intra = torch.einsum("bchij,bcjhp->bcihp", scores, xc)
+    y_intra = einsum("bchij,bcjhp->bcihp", scores, xc)
 
     # per-chunk boundary states
     decay_to_end = torch.exp(cs[..., -1:] - cs)           # (b,nc,h,q)
-    state_c = torch.einsum("bchj,bcjh,bcjhn,bcjhp->bchpn",
+    state_c = einsum("bchj,bcjh,bcjhn,bcjhp->bchpn",
                            decay_to_end, dtc, Bc, xc)
 
     # inter-chunk recurrence: the state entering each chunk
@@ -134,7 +149,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     s_prevs = torch.stack(s_prevs, dim=1)                 # (b,nc,h,p,n)
 
     in_decay = torch.exp(cs)                              # (b,nc,h,q)
-    y_inter = torch.einsum("bcihn,bchpn,bchi->bcihp", Cc, s_prevs, in_decay)
+    y_inter = einsum("bcihn,bchpn,bchi->bcihp", Cc, s_prevs, in_decay)
     y = (y_intra + y_inter).reshape(b, s, h, p)
     return y, final_state
 
@@ -151,8 +166,8 @@ def ssd_ref(x, dt, A, B, C, init_state=None):
         xt, dtt, Bt, Ct = x[:, t], dt[:, t], B[:, t], C[:, t]
         dec = torch.exp(dtt * A[None, :])                 # (b,h)
         st = st * dec[..., None, None] \
-            + torch.einsum("bh,bhn,bhp->bhpn", dtt, Bt, xt)
-        ys.append(torch.einsum("bhn,bhpn->bhp", Ct, st))
+            + einsum("bh,bhn,bhp->bhpn", dtt, Bt, xt)
+        ys.append(einsum("bhn,bhpn->bhp", Ct, st))
     return torch.stack(ys, dim=1), st
 
 
@@ -165,11 +180,13 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     nh, pd, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
-    z = torch.einsum("bsd,de->bse", x, p["w_z"].to(dt_))
-    xs = torch.einsum("bsd,de->bse", x, p["w_x"].to(dt_))
-    Bv = torch.einsum("bsd,de->bse", x, p["w_B"].to(dt_))
-    Cv = torch.einsum("bsd,de->bse", x, p["w_C"].to(dt_))
-    dt_raw = torch.einsum("bsd,dh->bsh", x, p["w_dt"].to(dt_))
+    z = einsum("bsd,de->bse", x, p["w_z"].to(dt_))
+    xs = einsum("bsd,de->bse", x, p["w_x"].to(dt_))
+    Bv = einsum("bsd,de->bse", x, p["w_B"].to(dt_))
+    Cv = einsum("bsd,de->bse", x, p["w_C"].to(dt_))
+    dt_raw = einsum("bsd,dh->bsh", x, p["w_dt"].to(dt_))
+    z = shard(z, "batch", "seq", "p_ssm_inner")
+    xs = shard(xs, "batch", "seq", "p_ssm_inner")
 
     st = state or {}
     xs, conv_x = _causal_conv(xs, p["conv_x"].to(dt_), st.get("conv_x"))
@@ -205,10 +222,12 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
         y, ssm = ssd_ref(xh, dt_act, A, Bh, Ch, st.get("ssm"))
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(b, s, nh * pd).to(dt_)
+    y = shard(y, "batch", "seq", "p_ssm_inner")
 
     y = rmsnorm(y * _silu(z), p["norm"], cfg.rmsnorm_eps)
     op_hook("mamba.ssd", (xs, Bv, Cv, dt_raw), (y,))
-    out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(dt_))
+    out = einsum("bse,ed->bsd", y, p["w_out"].to(dt_))
+    out = shard(out, "batch", "seq", "embed")
     op_hook("mamba.out_proj", (y, p["w_out"]), (out,))
     new_state = {"conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C,
                  "ssm": ssm}

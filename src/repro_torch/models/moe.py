@@ -8,10 +8,14 @@ expert matmuls, on one device.
   4. scatter token rows into the (E, C, d) buffer; two batched einsums
      (SwiGLU) over the expert dim; gather back; gate-weighted sum over k.
 
-The reference splits the tokens into G groups, G = the data-parallel
-degree, and dispatches each group on its own shard.  On one device G = 1:
-the group axis stays (so the hooked tensors have the reference's shapes)
-and holds one group.  Shared experts run densely for every token.
+The tokens split into G groups, G = the data-parallel degree
+(``pod`` × ``data``), and each group is dispatched on its own shard: on a
+mesh each rank runs the sort-based dispatch on the local block of its
+groups (``to_local``/``from_local``, as the reference's vmap runs inside
+its shard), since the dispatch's ``searchsorted`` has no DTensor rule.
+On one device G = 1 and the group axis holds one group.  Expert hidden
+dims shard over ``model`` (TP-MoE); shared experts run densely for every
+token.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.instrument import op_hook
+from repro_torch.dist.sharding import einsum, mesh_axis_size, shard
 from .config import ModelConfig
 from .layers import _silu, normal_init
 
@@ -44,6 +50,30 @@ def init_moe(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
         p["ws_up"] = normal((d, fs), s_in)
         p["ws_down"] = normal((fs, d), s_out)
     return p
+
+
+def moe_param_axes(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of one MoE layer's weights."""
+    if cfg.moe_parallelism == "ep":
+        # experts over `model`, d_model over `data` (FSDP); hidden dim local
+        axes = {
+            "router": ("p_embed", None),
+            "w_gate": ("p_experts_ep", "p_embed", None),
+            "w_up": ("p_experts_ep", "p_embed", None),
+            "w_down": ("p_experts_ep", None, "p_embed"),
+        }
+    else:
+        axes = {
+            "router": ("p_embed", None),
+            "w_gate": ("p_experts", "p_embed", "p_expert_ff"),
+            "w_up": ("p_experts", "p_embed", "p_expert_ff"),
+            "w_down": ("p_experts", "p_expert_ff", "p_embed"),
+        }
+    if cfg.n_shared_experts:
+        axes.update({"ws_gate": ("p_embed", "p_expert_ff"),
+                     "ws_up": ("p_embed", "p_expert_ff"),
+                     "ws_down": ("p_expert_ff", "p_embed")})
+    return axes
 
 
 def top_k(probs: torch.Tensor, k: int):
@@ -88,48 +118,109 @@ def _combine_group(ye, gates, order, slot, keep, k: int, dt):
     return (y_sorted.reshape(t, k, d) * gates.to(dt)[..., None]).sum(1)
 
 
+def _per_group(fn, *xs):
+    """``fn`` over the leading group axis of ``xs`` (the reference's
+    vmap); outputs (a tensor or tuple of them per group) stacked along a
+    new leading axis.  One group: ``fn``'s outputs as views, ``[None]``."""
+    outs = [fn(*(x[i] for x in xs)) for i in range(xs[0].shape[0])]
+
+    def stack(parts):
+        if isinstance(parts[0], tuple):
+            return tuple(stack([p[j] for p in parts])
+                         for j in range(len(parts[0])))
+        return parts[0][None] if len(parts) == 1 else torch.stack(parts)
+    return stack(outs)
+
+
+def _regroup(x, *shape):
+    """``x.reshape(*shape)`` for a reshape that keeps the leading
+    (batch-sharded) rows in blocks: on a DTensor laid out over ``batch``
+    it reshapes each rank's block, where DTensor's own view rule can give
+    the gradient a block of the wrong shape."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    x = shard(x, "batch", *(None,) * (x.dim() - 1))
+    n = 1
+    for size, p in zip(x.device_mesh.shape, x.placements):
+        n *= size if p.is_shard() else 1
+    local = x.to_local().reshape(shape[0] // n, *shape[1:])
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False)
+
+
+def _local(x):
+    """The local block of the groups of ``x`` (groups sharded over
+    ``batch``, the rest replicated) and the function that wraps a local
+    result of that layout back; on a plain tensor, ``x`` and the
+    identity."""
+    if not isinstance(x, DTensor):
+        return x, lambda y: y
+    x = shard(x, "batch", *(None,) * (x.dim() - 1))
+    return x.to_local(), lambda y: DTensor.from_local(
+        y, x.device_mesh, x.placements, run_check=False)
+
+
 def moe_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (B,S,d). Returns (y, aux) with load-balancing stats."""
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     t = b * s
-    g = 1
+    g = mesh_axis_size("pod") * mesh_axis_size("data")
+    while g > 1 and t % g:
+        g //= 2
     tl = t // g
-    xt = x.reshape(g, tl, d)
+    xt = _regroup(x, g, tl, d)
+    xt = shard(xt, "batch", None, "embed")
 
     # ---- router (f32) -----------------------------------------------------
-    logits = torch.einsum("gtd,de->gte", xt.to(torch.float32), p["router"])
+    logits = einsum("gtd,de->gte", xt.to(torch.float32), p["router"])
     probs = torch.softmax(logits, dim=-1)
 
     cap = int(math.ceil(tl * k / e * cfg.capacity_factor))
     cap = max(4, min(cap, tl))
-    xe, meta = _dispatch_group(xt[0], probs[0], k, e, cap, dt)
-    xe = xe[None]                                          # (g,e,cap,d)
+    # ---- dispatch, each group on the rank that holds it ---------------------
+    xt_l, wrap = _local(xt)
+    probs_l, _ = _local(probs)
+    xe_l, meta = _per_group(
+        lambda xg, pg: _dispatch_group(xg, pg, k, e, cap, dt), xt_l, probs_l)
+    xe = wrap(xe_l)
+    ep = cfg.moe_parallelism == "ep"
+    e_ax = "experts_ep" if ep else "experts"
+    f_ax = None if ep else "expert_ff"
+    xe = shard(xe, "batch", e_ax, None, "embed")           # (g,e,cap,d)
 
     # ---- expert SwiGLU (block-diagonal over experts) ------------------------
-    gt = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt))
-    u = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
+    gt = einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt))
+    u = einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
+    gt = shard(gt, "batch", e_ax, None, f_ax)
+    u = shard(u, "batch", e_ax, None, f_ax)
     h = _silu(gt) * u
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    ye = einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    ye = shard(ye, "batch", e_ax, None, "embed")
     op_hook("moe.experts", (xe, p["w_gate"], p["w_up"], p["w_down"]), (ye,))
 
-    y = _combine_group(ye[0], *meta, k, dt)[None]
+    ye_l, _ = _local(ye)
+    y = wrap(_per_group(lambda yg, *m: _combine_group(yg, *m, k, dt),
+                        ye_l, *meta))
 
     # ---- shared experts (dense) --------------------------------------------
     if cfg.n_shared_experts:
-        sg = torch.einsum("gtd,df->gtf", xt, p["ws_gate"].to(dt))
-        su = torch.einsum("gtd,df->gtf", xt, p["ws_up"].to(dt))
-        y = y + torch.einsum("gtf,fd->gtd", _silu(sg) * su,
+        sg = einsum("gtd,df->gtf", xt, p["ws_gate"].to(dt))
+        su = einsum("gtd,df->gtf", xt, p["ws_up"].to(dt))
+        sg = shard(sg, "batch", None, "expert_ff")
+        su = shard(su, "batch", None, "expert_ff")
+        y = y + einsum("gtf,fd->gtd", _silu(sg) * su,
                              p["ws_down"].to(dt))
 
     # load-balance aux loss (Switch-style)
     me = probs.mean(dim=(0, 1))                            # (e,)
     _gates, _order, slot, keep = meta
     flat_e = torch.clamp(slot // cap, 0, e - 1)
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
-        0, flat_e.reshape(-1), keep.reshape(-1).to(torch.float32)) / (t * k)
+    ce = wrap(torch.zeros((slot.shape[0], e), dtype=torch.float32,
+                          device=slot.device).scatter_add_(
+        1, flat_e, keep.to(torch.float32))).sum(0) / (t * k)
     aux = {"lb_loss": e * torch.sum(me * ce),
-           "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
-    y = y.reshape(b, s, d)
-    return y, aux
+           "dropped_frac": 1.0 - wrap(keep.to(torch.float32)).mean()}
+    y = _regroup(y, b, s, d)
+    return shard(y, "batch", "seq", "embed"), aux

@@ -1,8 +1,10 @@
-"""AdamW with optionally int8-quantized moments, on one device.
+"""AdamW with optionally int8-quantized moments (ZeRO-3-sharded on a mesh).
 
-Moments can be stored in int8 with per-row (last-axis) absmax scales — the
-blockwise-quantized-Adam trick the trillion-parameter config needs, laid
-out so array shapes are preserved.  The arithmetic is the reference's, step
+Optimizer state inherits the parameter sharding (:func:`opt_state_axes`),
+so on a mesh its memory divides by the mesh.  Moments can be stored in
+int8 with per-row (last-axis) absmax scales — the blockwise-quantized-Adam
+trick the trillion-parameter config needs, laid out so array shapes (and
+therefore placements) are preserved.  The arithmetic is the reference's, step
 for step, in float32; trees are nested dicts walked in sorted key order,
 the order ``jax.tree.leaves`` walks them in.
 """
@@ -13,6 +15,8 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,19 +76,41 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ states
 def init_opt_state(params: dict, cfg: OptConfig) -> dict:
+    """Zero moments with each parameter's shape (and, for a DTensor, its
+    placements: an int8 moment's scale replicates its last axis)."""
     def zeros_like_moment(p):
         if cfg.moment_dtype == "int8":
-            return {"q": torch.zeros(p.shape, dtype=torch.int8,
-                                     device=p.device),
-                    "scale": torch.zeros((*p.shape[:-1], 1),
-                                         dtype=torch.float32,
-                                         device=p.device)}
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return {"q": torch.zeros_like(p, dtype=torch.int8),
+                    "scale": _zeros_scale(p)}
+        return torch.zeros_like(p, dtype=torch.float32)
 
     leaf = tree_paths(params)[0][1]
     return {"mu": tree_map(zeros_like_moment, params),
             "nu": tree_map(zeros_like_moment, params),
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
+
+
+def _zeros_scale(p: torch.Tensor) -> torch.Tensor:
+    shape = (*p.shape[:-1], 1)
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    last = p.dim() - 1
+    return dtensor_zeros(shape, dtype=torch.float32,
+                         device_mesh=p.device_mesh,
+                         placements=[Replicate() if pl.is_shard(last)
+                                     else pl for pl in p.placements])
+
+
+def opt_state_axes(p_axes: dict, cfg: OptConfig) -> dict:
+    """Logical sharding axes of the optimizer state, mirroring the
+    parameters' (an int8 moment's scale replicates its last axis)."""
+    def moment_axes(ax):
+        if cfg.moment_dtype == "int8":
+            return {"q": tuple(ax), "scale": tuple(ax[:-1]) + (None,)}
+        return tuple(ax)
+
+    return {"mu": tree_map(moment_axes, p_axes),
+            "nu": tree_map(moment_axes, p_axes), "step": ()}
 
 
 # ---------------------------------------------------------------- schedule
@@ -108,11 +134,18 @@ def global_norm(tree: dict) -> torch.Tensor:
                           for x in leaves))
 
 
-def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
+                 grad_sqnorm: torch.Tensor | None = None):
+    """Returns (new_params, new_state, metrics).
+
+    ``grad_sqnorm``: optional precomputed ``sum(g**2)`` over the whole
+    tree — the overlapped pod sync accumulates it per bucket while later
+    buckets' collectives are in flight, so the optimizer boundary doesn't
+    redo the full-tree reduction."""
     step = state["step"] + 1
     lr = lr_schedule(step, cfg)
-    gnorm = global_norm(grads)
+    gnorm = (torch.sqrt(grad_sqnorm) if grad_sqnorm is not None
+             else global_norm(grads))
     clip = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     b1, b2 = cfg.b1, cfg.b2
     sf = step.to(torch.float32)

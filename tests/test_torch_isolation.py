@@ -48,7 +48,11 @@ PORTED = ("repro_torch.kernels.instrumented_matmul",
           "repro_torch.serve.slo", "repro_torch.serve.traffic",
           "repro_torch.serve.faults", "repro_torch.serve.draft",
           "repro_torch.serve.engine", "repro_torch.core.tools.serving",
-          "repro_torch.launch.serve")
+          "repro_torch.launch.serve", "repro_torch.dist",
+          "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+          "repro_torch.dist.pipeline", "repro_torch.launch.mesh",
+          "repro_torch.launch.train", "repro_torch.train.checkpoint",
+          "repro_torch.train.elastic")
 
 
 @pytest.fixture(autouse=True)

@@ -172,11 +172,32 @@ def test_global_norm_and_one_update_match_reference():
 
 
 def test_sync_modes_are_not_ported():
+    """Without a mesh the explicit pod sync is the identity (the
+    reference's ``pod_sync`` returns the gradients unchanged when no mesh
+    is set): each sync keyword gives the plain step's parameters and
+    metrics bit for bit."""
     cfg = TC.reduced(TC.get("paper-gpt2"))
+    x, labels = _batch(cfg)
+    batch = {"inputs": torch.from_numpy(x), "labels": torch.from_numpy(labels)}
+    opt_cfg = OptConfig(lr=1e-3)
+    params = params_from_numpy(jax.tree.map(
+        np.asarray, jinit_params(jax.random.PRNGKey(0), RC.reduced(
+            RC.get("paper-gpt2")))), "cpu")
+    want_p, want_s, want_m = make_train_step(cfg, opt_cfg)(
+        params, topt.init_opt_state(params, opt_cfg), batch)
     for kw in ({"overlap_sync": True}, {"overlap_sync": False},
                {"sync_compressed": True}, {"sync_buckets": 2}):
-        with pytest.raises(NotImplementedError):
-            make_train_step(cfg, OptConfig(), **kw)
+        got_p, got_s, got_m = make_train_step(cfg, opt_cfg, **kw)(
+            params, topt.init_opt_state(params, opt_cfg), batch)
+        assert set(got_m) == set(want_m)
+        for k in want_m:
+            assert torch.equal(got_m[k], want_m[k]), (kw, k)
+        for (path, a), (_q, b) in zip(topt.tree_paths(got_p),
+                                      topt.tree_paths(want_p)):
+            assert torch.equal(a, b), (kw, path)
+        for (path, a), (_q, b) in zip(topt.tree_paths(got_s),
+                                      topt.tree_paths(want_s)):
+            assert torch.equal(a, b), (kw, path)
 
 
 @pytest.mark.parametrize("frontend", ["none", "embed"])

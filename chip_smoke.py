@@ -88,8 +88,8 @@ non-zero and print no result):
                 requests, 2 slots, the slot pool); then reduced paper-gpt2
                 (paged), mamba2-2.7b, zamba2-7b and dbrx-132b in float32,
                 the card's tokens against the CPU's;
- 13. dist     — (run last) distributed training on one NCCL rank per
-                card, spawned with a ``FileStore`` and a timeout on the
+ 13. dist     — (run after phase 12) distributed training on one NCCL
+                rank per card, spawned with a ``FileStore`` and a timeout on the
                 join; the ranks' launches of the four kernels must be 0.
                 With one card: each collective of ``dist/collectives.py``
                 on the world-1 group against its plain version (exact),
@@ -105,8 +105,22 @@ non-zero and print no result):
                 wire bytes), stablelm-1.6b on pod 2 x data 2 in the three
                 explicit sync modes against the single-card step, and the
                 GPipe ring on pipe 4 against the layers in sequence.
+ 14. static   — (run last, in a child process: phase 13 ran real process
+                groups) the static half: ``repro_torch.launch.lint``'s
+                smoke grid with fake CUDA tensors must exit 0 green and 1
+                with each seeded defect (reshard, blocking); dry-run cells
+                on the fake 16 x 16 mesh (qwen3-32b train_4k, prefill_32k,
+                decode_32k; mamba2-2.7b long_500k) print their trace time,
+                state bytes per device and roofline terms, and kimi-k2
+                train_4k on 2 x 16 x 16 runs in a child of its own, kept
+                if it ends within 10 minutes; the peak estimate of a
+                full-width stablelm-1.6b train step against
+                ``torch.cuda.max_memory_allocated`` of the step run (0.8 to
+                1.2); glm4-9b at full width, 16 greedy decodes through the
+                two-tier KV cache against the dense one (equal tokens).
+                No trace kernel may launch.
 
-Every time and memory size of phases 9-13 is printed beside the card's
+Every time and memory size of phases 9-14 is printed beside the card's
 name and power limit.  Then one JSON line of kernels, the card's name and
 power limit, and the result line.  Launch counts are reset just before
 each path runs and read just after; the comparisons of phases 4 and 6 run
@@ -2092,6 +2106,256 @@ def _dist_report_four(res) -> None:
         fail("dist: the pipeline differs from the sequential layers")
 
 
+# ----------------------------------------------------------------- phase 14
+STATIC_TIMEOUT_S = 900          # the child of phase 14, every part included
+KIMI_TIMEOUT_S = 600            # kimi-k2's 512-rank cell, a child of its own
+PEAK_RATIO = (0.8, 1.2)         # static peak estimate / measured peak
+TWO_TIER_TOKENS = 16
+#: dry-run cells on the fake 16 x 16 production mesh
+DRYRUN_CELLS = (("qwen3-32b", "train_4k"), ("qwen3-32b", "prefill_32k"),
+                ("qwen3-32b", "decode_32k"), ("mamba2-2.7b", "long_500k"))
+
+
+def _static_lint() -> dict:
+    """The lint smoke grid (three archs on a fake 2 x 2 x 2 mesh) with
+    fake CUDA tensors: its exit code green and with each seeded defect."""
+    from repro_torch.launch import lint
+    out = {}
+    for name, extra in (("green", []), ("reshard", ["--seed-defect",
+                                                    "reshard"]),
+                        ("blocking", ["--seed-defect", "blocking"])):
+        t0 = time.perf_counter()
+        rc = lint.main(["--device", "cuda", "--baseline", lint.BASELINE]
+                       + extra)
+        out[name] = {"rc": rc, "s": time.perf_counter() - t0}
+    return out
+
+
+def _static_cell(arch: str, shape: str, multi_pod: bool) -> dict:
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out, _lint = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                                 device="cuda")
+    keep = ("mesh", "chips", "status", "trace_s", "lower_s", "layers_traced",
+            "layers_total", "microbatches_traced", "microbatches",
+            "state_bytes_per_device", "roofline", "memory_analysis")
+    res = {k: out[k] for k in keep if k in out}
+    res["hlo"] = {k: out["hlo"][k] for k in (
+        "flops_per_device", "hbm_bytes_per_device", "collective_total_bytes",
+        "exposed_collective_s", "n_collectives")}
+    res["lint"] = out["lint"]["n_unsuppressed"]
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _static_peak() -> dict:
+    """stablelm-1.6b at full width, one train step (world 1): the static
+    peak estimate of its trace (fake CUDA tensors) against
+    ``torch.cuda.max_memory_allocated`` of the same step, run."""
+    from repro_torch import analysis
+    from repro_torch.core.trace import trace_step
+    cfg = configs.get("stablelm-1.6b")
+    free_card()
+    params = init_params(cfg, SEED, "cuda")
+    opt_cfg = OptConfig()
+    state = init_opt_state(params, opt_cfg)
+    batch = _card_batch(cfg, "cuda")
+    step = make_train_step(cfg, opt_cfg)
+    t0 = time.perf_counter()
+    trace = trace_step(step, params, state, batch, device_type="cuda")
+    trace_s = time.perf_counter() - t0
+    est = analysis.estimate_peak_bytes(trace)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(params, state, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated()
+    loss = float(out[2]["loss"])
+    del out, params, state
+    free_card()
+    return {"estimate": est["peak_bytes"], "measured": measured,
+            "persistent": est["persistent_bytes"], "trace_s": trace_s,
+            "fake_peak": trace.measured_peak_bytes,
+            "records": len(trace.records), "loss": loss}
+
+
+def _static_two_tier() -> dict:
+    """glm4-9b at full width (float32 compute): a 16-token prompt
+    prefilled, then 16 greedy decodes through the two-tier KV cache
+    (frozen main cache, 16-slot recent buffer) and through the dense
+    cache, each feeding its own argmax."""
+    cfg = dataclasses.replace(configs.get("glm4-9b"), dtype="float32")
+    cfg2 = dataclasses.replace(cfg, kv_two_tier=True,
+                               kv_recent_len=TWO_TIER_TOKENS)
+    free_card()
+    params = init_params(cfg, SEED, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                           dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, cache = forward(params, prompt, cfg, return_cache=True,
+                                logits_mode="last")
+        kv = cache["kv"]
+        recent = torch.zeros((*kv["k"].shape[:2], TWO_TIER_TOKENS,
+                              *kv["k"].shape[3:]), dtype=kv["k"].dtype,
+                             device="cuda")
+        two = {"kv": {**kv, "main_len": kv["length"].clone(),
+                      "rk": recent, "rv": recent.clone()}}
+        pad = lambda a: torch.cat([a, torch.zeros_like(recent)],  # noqa
+                                  dim=2)
+        dense = {"kv": {"k": pad(kv["k"]), "v": pad(kv["v"]),
+                        "length": kv["length"].clone()}}
+        main_k = kv["k"].clone()
+        tok_t = tok_d = logits.argmax(-1).to(torch.int32)
+        worst, toks_t, toks_d = 0.0, [], []
+        t0 = time.perf_counter()
+        for _ in range(TWO_TIER_TOKENS):
+            lt, two = forward(params, tok_t, cfg2, cache=two,
+                              logits_mode="last")
+            ld, dense = forward(params, tok_d, cfg, cache=dense,
+                                logits_mode="last")
+            worst = max(worst, _max_err(lt, ld))
+            tok_t = lt.argmax(-1).to(torch.int32)
+            tok_d = ld.argmax(-1).to(torch.int32)
+            toks_t.append(tok_t.flatten().tolist())
+            toks_d.append(tok_d.flatten().tolist())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        frozen = torch.equal(two["kv"]["k"], main_k)
+    del params, two, dense, cache
+    free_card()
+    return {"max_dlogit": worst, "tokens_two_tier": toks_t,
+            "tokens_dense": toks_d, "main_frozen": frozen, "s": secs}
+
+
+def _static_child(out_path: str, part: str) -> None:
+    """Phase 14's parts, in a process with no default group (phase 13
+    ran real ones; a trace makes its own fake one)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if part == "kimi":
+        res = {"kimi": _static_cell("kimi-k2-1t-a32b", "train_4k", True)}
+    else:
+        res = {"lint": _static_lint(),
+               "cells": {f"{a} {s}": _static_cell(a, s, False)
+                         for a, s in DRYRUN_CELLS},
+               "peak": _static_peak(), "two_tier": _static_two_tier()}
+    res["launches"] = dict(ops.launches)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _run_static_child(part: str, tmp: str, timeout: float):
+    """``(result or None, seconds)``: ``part`` in a child process; None
+    when it ran past ``timeout`` (the child is killed)."""
+    path = os.path.join(tmp, f"static_{part}.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke as c; "
+             f"c._static_child({path!r}, {part!r})"],
+            cwd=here, capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return None, time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    if r.stdout.strip():
+        print(r.stdout.rstrip(), flush=True)
+    if r.returncode != 0:
+        print(r.stderr[-4000:], flush=True)
+        fail(f"static: the {part} child exited {r.returncode}")
+    with open(path) as f:
+        return json.load(f), secs
+
+
+def phase_static() -> None:
+    """Phase 14: the static half — lint and dry-run on fake process groups
+    with fake CUDA tensors, the peak estimate against a real step, and the
+    two-tier KV cache on the card."""
+    import tempfile
+    global CARD
+    if not CARD:
+        CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    free_card()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, secs = _run_static_child("main", tmp, STATIC_TIMEOUT_S)
+        if res is None:
+            fail(f"static: the child ran past {STATIC_TIMEOUT_S} s")
+        kimi, kimi_s = _run_static_child("kimi", tmp, KIMI_TIMEOUT_S)
+    print(f"static: the child took {secs:.1f} s; trace kernel launches "
+          f"{res['launches']}, on {CARD}", flush=True)
+    if any(res["launches"].values()):
+        fail(f"static: a trace kernel launched: {res['launches']}")
+    lint = res["lint"]
+    print(f"static lint: smoke grid (qwen3-32b, mamba2-2.7b, dbrx-132b "
+          f"reduced, fake 2 x 2 x 2 mesh, fake CUDA tensors, the shipped "
+          f"baseline): exit green {lint['green']['rc']} "
+          f"({lint['green']['s']:.1f} s), --seed-defect reshard "
+          f"{lint['reshard']['rc']} ({lint['reshard']['s']:.1f} s), "
+          f"--seed-defect blocking {lint['blocking']['rc']} "
+          f"({lint['blocking']['s']:.1f} s); on {CARD}", flush=True)
+    if [lint[k]["rc"] for k in ("green", "reshard", "blocking")] != [0, 1, 1]:
+        fail("static: lint exit codes are not green 0, reshard 1, "
+             "blocking 1")
+    cells = dict(res["cells"])
+    if kimi is not None:
+        cells["kimi-k2-1t-a32b train_4k"] = kimi["kimi"]
+    for name, c in cells.items():
+        r = c["roofline"]
+        print(f"static dryrun: {name} on {c['mesh']} ({c['chips']} fake "
+              f"ranks): trace_s {c['trace_s']} (layers "
+              f"{c['layers_traced']}/{c['layers_total']}, microbatches "
+              f"{c['microbatches_traced']}/{c['microbatches']}), cell "
+              f"{c['wall_s']:.1f} s; state_bytes_per_device "
+              f"{c['state_bytes_per_device']}; roofline compute "
+              f"{r['compute_s']:.6g} s, memory {r['memory_s']:.6g} s, "
+              f"collective {r['collective_s']:.6g} s -> {r['bottleneck']}, "
+              f"fraction {r['roofline_fraction']:.4f}; flops/device "
+              f"{c['hlo']['flops_per_device']:.6g}, hbm bytes/device "
+              f"{c['hlo']['hbm_bytes_per_device']:.6g}, collective bytes "
+              f"{c['hlo']['collective_total_bytes']:.6g} "
+              f"({c['hlo']['n_collectives']} collectives, exposed "
+              f"{c['hlo']['exposed_collective_s']:.6g} s); peak estimate "
+              f"{c['memory_analysis']['peak_bytes'] / 1e9:.3f} GB; "
+              f"unsuppressed lint findings {c['lint']}; on {CARD}",
+              flush=True)
+        if c["status"] != "ok" or not c["hlo"]["flops_per_device"] > 0:
+            fail(f"static: dry-run cell {name} gave no FLOPs")
+    if kimi is None:
+        print(f"static dryrun: kimi-k2-1t-a32b train_4k on 2x16x16 did not "
+              f"end within {KIMI_TIMEOUT_S} s ({kimi_s:.1f} s), left out; "
+              f"on {CARD}", flush=True)
+    else:
+        print(f"static dryrun: kimi-k2-1t-a32b train_4k child {kimi_s:.1f} "
+              f"s; on {CARD}", flush=True)
+    p = res["peak"]
+    ratio = p["estimate"] / p["measured"]
+    print(f"static peak: stablelm-1.6b full width, one train step (world "
+          f"1, float32 weights and moments, batch 2 x 64): estimate "
+          f"{p['estimate'] / 1e9:.4f} GB (persistent "
+          f"{p['persistent'] / 1e9:.4f} GB; the fake run's own high-water "
+          f"mark {p['fake_peak'] / 1e9:.4f} GB; {p['records']} records, "
+          f"traced in {p['trace_s']:.1f} s) against "
+          f"torch.cuda.max_memory_allocated {p['measured'] / 1e9:.4f} GB "
+          f"of the step run: ratio {ratio:.4f} (held to {PEAK_RATIO}); "
+          f"loss {p['loss']!r}; on {CARD}", flush=True)
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        fail(f"static: the peak estimate is {ratio:.4f} of the measured")
+    t = res["two_tier"]
+    same = t["tokens_two_tier"] == t["tokens_dense"]
+    print(f"static two-tier: glm4-9b full width (float32 compute), 16-token "
+          f"prompt, {TWO_TIER_TOKENS} greedy decodes two-tier (frozen main "
+          f"cache, {TWO_TIER_TOKENS}-slot recent buffer) against dense: "
+          f"largest |dlogit| {t['max_dlogit']:.3e}, greedy tokens equal "
+          f"{same}, main cache frozen {t['main_frozen']}; both paths "
+          f"{t['s']:.2f} s; on {CARD}", flush=True)
+    if not same or not t["main_frozen"]:
+        fail("static: two-tier decode differs from dense decode")
+
+
 def profiler_probe(when: str) -> None:
     """Print how many of one fill's and one negation's two device records
     a profiler session keeps (a short session late in this process has
@@ -2132,6 +2396,7 @@ def main() -> None:
     profiler_probe("after the captures")
     phase_serving()
     dist_launches = phase_dist()
+    phase_static()
     for row in kernels:
         row["launches_dist"] = dist_launches.get(row["name"], 0)
     for name in ("trace_aggregate", "object_histogram"):

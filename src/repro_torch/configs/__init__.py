@@ -22,6 +22,7 @@ _ARCHS = {
     "paper-gpt2": "paper_gpt2",
     "paper-bert": "paper_bert",
 }
+ASSIGNED = list(_ARCHS)[:10]          # the 10 assigned architectures
 
 
 def get(name: str) -> ModelConfig:

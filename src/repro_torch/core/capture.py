@@ -91,6 +91,39 @@ class CaptureStats:
     hw: dict = dataclasses.field(default_factory=dict)
     warnings: dict = dataclasses.field(default_factory=dict)
 
+    @property
+    def total_collective_bytes(self) -> float:
+        return float(sum(self.collective_bytes.values()))
+
+    @property
+    def total_wire_bytes(self) -> float:
+        return float(sum(self.collective_wire_bytes.values()))
+
+    @property
+    def exposed_collective_bytes(self) -> float:
+        """Wire bytes NOT hidden behind the overlap windows."""
+        return float(sum(i["exposed_bytes"] * i["mult"]
+                         for i in self.collective_instances))
+
+    @property
+    def hidden_collective_s(self) -> float:
+        """Seconds of collective time credited as overlapped."""
+        return float(sum(i["hidden_s"] * i["mult"]
+                         for i in self.collective_instances))
+
+    @property
+    def collective_comm_s(self) -> float:
+        """Total alpha-beta collective seconds (a profiled run models
+        none: 0)."""
+        return float(sum(i.get("comm_s", 0.0) * i["mult"]
+                         for i in self.collective_instances))
+
+    @property
+    def exposed_collective_s(self) -> float:
+        """Collective seconds NOT hidden behind concurrent work."""
+        return float(sum(max(i.get("comm_s", 0.0) - i["hidden_s"], 0.0)
+                         * i["mult"] for i in self.collective_instances))
+
 
 def collective_wire_bytes(opcode: str, op_bytes: float, out_bytes: float,
                           group_size: int | None) -> float:

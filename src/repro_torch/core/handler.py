@@ -259,14 +259,20 @@ class EventHandler:
                          default_trip: int = 1, steps: int = 1,
                          cost_analysis: dict | None = None):
         """Emit kernel/collective events for a captured step: a
-        :class:`~repro_torch.core.capture.StepArtifact`, or a no-argument
-        callable, which is captured first.  Returns the
+        :class:`~repro_torch.core.capture.StepArtifact`, a
+        :class:`~repro_torch.core.trace.StepTrace` (the static
+        counterpart: records scaled by their trip counts), or a
+        no-argument callable, which is captured first.  Returns the
         :class:`~repro_torch.core.capture.CaptureStats` rollup."""
+        from . import trace as trace_mod
         artifact = artifact_or_fn
         if callable(artifact_or_fn):
             artifact = capture_mod.capture_step(artifact_or_fn)
         t0 = time.perf_counter()
-        stats = capture_mod.analyze(artifact, default_trip=default_trip)
+        if isinstance(artifact, trace_mod.StepTrace):
+            stats = trace_mod.analyze_trace(artifact)
+        else:
+            stats = capture_mod.analyze(artifact, default_trip=default_trip)
         parse_s = time.perf_counter() - t0
         self.emit(Event(EventKind.COMPILE, name=label,
                         attrs={"parse_s": parse_s,

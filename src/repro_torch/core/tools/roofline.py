@@ -25,6 +25,14 @@ H100 = {
     "peak_flops": 989e12,      # bf16 dense tensor-core FLOP/s
     "hbm_bw": 3.35e12,         # HBM3 bytes/s
     "ici_bw": 900e9,           # NVLink bytes/s per card (4th generation)
+    # the link between hosts (the reference's inter-pod DCI): one
+    # ConnectX-7 port of 400 Gb/s per card, from NVIDIA's DGX H100 data
+    # sheet (https://www.nvidia.com/en-us/data-center/dgx-h100/) — a
+    # data-sheet rate, not a measurement
+    "dci_bw": 50e9,
+    # per-collective latency (alpha): no data sheet gives one; the
+    # reference's 1 us, kept as an assumption, not a measurement
+    "ici_latency": 1e-6,
     "hbm_bytes": 80e9,         # HBM3 capacity, "80 GB"
 }
 

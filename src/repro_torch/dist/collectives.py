@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import trace
+
 #: quantization group size for the wire layout — one f32 scale per GROUP
 #: int8 payload bytes (+6% scale overhead, enough resolution for the <1%
 #: round-trip bound through both quantization stages)
@@ -125,7 +127,11 @@ def psum_start(x: torch.Tensor, axis="pod", compressed: bool = False,
     flight from this point (``async_op=True``); schedule independent
     compute before calling :func:`psum_wait`.
     """
-    pg = _pg(axis)
+    with trace.scope("psum_start"):
+        return _psum_start(x, _pg(axis), compressed, group)
+
+
+def _psum_start(x, pg, compressed: bool, group: int) -> PsumHandle:
     n = dist.get_world_size(pg)
     if not compressed:
         flat, pad = _flatten_pad(x, n)
@@ -157,12 +163,19 @@ def _reduce_received(handle: PsumHandle, n: int) -> None:
 
 def psum_wait(handle: PsumHandle, axis="pod") -> torch.Tensor:
     """Finish a bucketed psum: wait for the reduce half, all-gather the
-    reduced shards and restore the original shape and dtype."""
-    pg = _pg(axis)
+    reduced shards and restore the original shape and dtype.  Each wait is
+    marked for a step trace (``Work.wait()`` is not a dispatched op)."""
+    with trace.scope("psum_wait"):
+        return _psum_wait(handle, _pg(axis))
+
+
+def _psum_wait(handle: PsumHandle, pg) -> torch.Tensor:
     n = dist.get_world_size(pg)
     for work in handle.works:
         work.wait()
     handle.works = []
+    trace.mark_wait(handle.received if handle.compressed
+                    else handle.payload)
     if handle.compressed:
         _reduce_received(handle, n)
         q = handle.payload.new_empty(handle.payload.numel() * n)
@@ -173,6 +186,7 @@ def psum_wait(handle: PsumHandle, axis="pod") -> torch.Tensor:
                                              async_op=True)]
         for work in works:
             work.wait()
+        trace.mark_wait(q, s)
         flat = _dequantize_groups(q, s, handle.group)
     else:
         flat = handle.payload.new_empty(handle.payload.numel() * n)
@@ -187,7 +201,8 @@ def plain_psum(x: torch.Tensor, axis="pod") -> torch.Tensor:
     """Uncompressed all-reduce over ``axis`` (baseline); returns a new
     tensor."""
     out = x.clone()
-    dist.all_reduce(out, group=_pg(axis))
+    with trace.scope("psum"):
+        dist.all_reduce(out, group=_pg(axis))
     return out
 
 
@@ -200,7 +215,8 @@ def compressed_psum(x: torch.Tensor, axis="pod") -> torch.Tensor:
     if squeeze:
         x = x.reshape(1)
     pg = _pg(axis)
-    out = psum_wait(psum_start(x, pg, compressed=True), pg)
+    with trace.scope("psum"):
+        out = psum_wait(psum_start(x, pg, compressed=True), pg)
     return out[0] if squeeze else out
 
 

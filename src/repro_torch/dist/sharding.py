@@ -91,6 +91,8 @@ def set_mesh(mesh, rules: ShardingRules | None = None) -> None:
     sharding).  ``rules=None`` resets to :data:`DEFAULT_RULES`; pass
     ``set_mesh(mesh, get_rules())`` to keep a custom table in force."""
     global _MESH, _RULES
+    if mesh is not None:
+        _register_missing_rules()
     _MESH = mesh
     _RULES = ShardingRules(rules) if rules is not None else DEFAULT_RULES
 
@@ -306,6 +308,28 @@ def intended_collectives(rules=None, mesh_axes=None, kind: str = "",
         "ragged-all-to-all": set(a2a),
         "collective-permute": permute,
     }
+
+
+def _register_missing_rules() -> None:
+    """Give DTensor a sharding rule for ``aten.flip`` where the release
+    has none (torch 2.11; 2.13 has one): the backward of ``cumsum`` (the
+    SSD scan's) flips, and without a rule a sharded Mamba2 step fails.
+    Flipping keeps any sharding of the dimensions it does not flip."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    op = torch.ops.aten.flip.default
+    if any(op in getattr(prop, name, {}) for name in (
+            "op_to_rules", "op_strategy_funcs",
+            "op_single_dim_strategy_funcs")):
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(op)
+    def _flip(x, dims):
+        ndim = len(x.shape)
+        flipped = {d % ndim for d in dims}
+        return [([Replicate()], [Replicate(), None])] + [
+            ([Shard(d)], [Shard(d), None]) for d in range(ndim)
+            if d not in flipped]
 
 
 def shard(x, *axes):

@@ -11,11 +11,18 @@ from __future__ import annotations
 from torch.distributed.device_mesh import init_device_mesh
 
 
+def production_mesh_shape(multi_pod: bool = False) -> tuple:
+    """``(shape, dim names)``: 16×16 = 256 devices per pod; 2 pods = 512
+    devices multi-pod."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
-    """16×16 = 256 devices per pod; 2 pods = 512 devices multi-pod."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The production mesh of :func:`production_mesh_shape`."""
+    shape, axes = production_mesh_shape(multi_pod)
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

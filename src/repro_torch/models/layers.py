@@ -32,7 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.instrument import op_hook
 from repro_torch.dist.sharding import einsum, shard
@@ -269,6 +269,15 @@ def _sdpa_decode_partial(q, k_cache, v_cache, lengths, base=None):
     return acc, m, l
 
 
+def _merge_partials(parts):
+    """Merge flash-decode partials [(acc, m, l), ...] exactly."""
+    accs, ms, ls = zip(*parts)
+    m_all = torch.stack(ms).amax(dim=0)
+    acc = sum(a * torch.exp(m - m_all)[..., None] for a, m in zip(accs, ms))
+    l_all = sum(l * torch.exp(m - m_all) for l, m in zip(ls, ms))
+    return acc / torch.clamp(l_all, min=1e-30)[..., None], m_all, l_all
+
+
 def _sdpa_decode(q, k_cache, v_cache, lengths, base=None):
     """Decode: q:(B,S,Hkv,G,D) against cache:(B,T,Hkv,D), a softmax over
     the cache masked at each row's length (causal per query with
@@ -324,6 +333,48 @@ def dense_plan(base: torch.Tensor, s: int, max_seq: int) -> tuple:
                       (pos < max_seq).reshape(-1))
 
 
+def put_sharded(cache, vals, base, s: int) -> None:
+    """:func:`put` of an S-token append at each row's ``base`` into a
+    DTensor slot cache (B, T, ...) sharded over its batch and sequence
+    dimensions, on this rank's block: each rank writes the rows and
+    positions it holds (a dense plan of its block; the rest drop), so no
+    cache bytes move.  ``vals`` (B, S, ...) is gathered to the block's
+    rows.  A dimension that does not divide its mesh dimensions leaves
+    the last ranks shorter blocks (``torch.chunk``'s split, mesh
+    dimensions in order, as DTensor cuts them)."""
+    mesh, pl = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    coord = mesh.get_coordinate()
+    size, off = list(cache.shape[:2]), [0, 0]
+    for j, p in enumerate(pl):
+        if p.is_shard() and p.dim < 2:
+            chunk = -(-size[p.dim] // mesh.size(j))
+            start = min(coord[j] * chunk, size[p.dim])
+            off[p.dim] += start
+            size[p.dim] = min(size[p.dim] - start, chunk)
+    bl, tl = size
+    if (bl, tl) != tuple(local.shape[:2]):
+        raise ValueError(f"this rank's block {tuple(local.shape)} is not "
+                         f"the chunk {(bl, tl)} of the cache")
+    rows = slice(off[0], off[0] + bl)
+    if isinstance(vals, DTensor):
+        vals = vals.redistribute(mesh, [Shard(0) if p.is_shard(0)
+                                        else Replicate() for p in pl])
+        vals = vals.to_local()
+    else:
+        vals = vals[rows]
+    b = base.full_tensor() if isinstance(base, DTensor) else base
+    if local.numel() == 0:
+        return          # this rank holds no block (after the collectives)
+    pos = b[rows].long()[:, None] + torch.arange(s, device=local.device) \
+        - off[1]
+    valid = (pos >= 0) & (pos < tl) & (pos + off[1] < cache.shape[1])
+    r = torch.arange(bl, device=local.device)[:, None]
+    plan = write_plan((r * tl + pos.clamp(0, tl - 1)).reshape(-1),
+                      valid.reshape(-1))
+    put(local.view(-1, *local.shape[2:]), plan, vals.flatten(0, 1))
+
+
 def paged_plan(bt: torch.Tensor, base: torch.Tensor, s: int,
                n_blocks: int, block_size: int) -> dict:
     """Write plan and gather table of an S-token append at each row's
@@ -340,6 +391,17 @@ def paged_plan(bt: torch.Tensor, base: torch.Tensor, s: int,
     return {"write": write_plan(flat.reshape(-1),
                                 (blk < n_blocks).reshape(-1)),
             "gather": torch.clamp(bt.long(), max=n_blocks - 1)}
+
+
+def _whole_heads(q):
+    """``q`` with its heads dimension replicated (a DTensor's): grouping
+    the heads into (KV head, group) splits that dimension, which DTensor
+    cannot do to a sharded one.  A decode's query is one token."""
+    if not isinstance(q, DTensor) or not any(p.is_shard(2)
+                                             for p in q.placements):
+        return q
+    return q.redistribute(q.device_mesh, [
+        Replicate() if p.is_shard(2) else p for p in q.placements])
 
 
 def _per_shard(fn, q, k, v):
@@ -384,16 +446,34 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
                      "length": torch.full((b,), s, dtype=torch.int32,
                                           device=x.device)}
     elif "rk" in cache:
-        raise NotImplementedError(
-            "the two-tier KV cache (kv_two_tier) belongs to "
-            "sequence-sharded decode, which waits for distribution "
-            "(ROADMAP queue 1, item 7)")
+        # two-tier decode: the big seq-sharded main cache stays FROZEN (no
+        # per-layer rewrite); new tokens append into a small replicated
+        # recent buffer at row 0's offset (clamped to fit, as JAX's
+        # dynamic_update_slice); the partial softmaxes merge exactly
+        qg = _group(_whole_heads(q), cfg.n_kv_heads)
+        lengths = cache["length"] + s
+        main_len = cache["main_len"]
+        rk, rv = cache["rk"], cache["rv"]
+        start = torch.clamp((cache["length"] - main_len)[:1].long(), 0,
+                            rk.shape[1] - s)
+        idx = start + torch.arange(s, device=start.device)
+        rk.index_copy_(1, idx, k.to(rk.dtype))
+        rv.index_copy_(1, idx, v.to(rv.dtype))
+        k_main = shard(cache["k"], "batch", "seq_sp", None, "head_dim")
+        v_main = shard(cache["v"], "batch", "seq_sp", None, "head_dim")
+        p_main = _sdpa_decode_partial(qg, k_main, v_main, main_len)
+        p_rec = _sdpa_decode_partial(qg, rk, rv, lengths - main_len)
+        norm, _m, _l = _merge_partials([p_main, p_rec])
+        out = norm.to(q.dtype).permute(0, 3, 1, 2, 4)        # (B,S,Hkv,G,D)
+        out = out.reshape(out.shape[0], out.shape[1], -1, out.shape[-1])
+        new_cache = {"k": cache["k"], "v": cache["v"], "rk": rk, "rv": rv,
+                     "length": lengths, "main_len": main_len}
     elif "pk" in cache:
         # paged decode/append: new K/V scatter through each row's block
         # table at base..base+S-1; the softmax gathers the row's window
         # back as a contiguous (B, T) view, the values the dense slot
         # layout would hold
-        qg = _group(q, cfg.n_kv_heads)
+        qg = _group(_whole_heads(q), cfg.n_kv_heads)
         pk, pv, bt = cache["pk"], cache["pv"], cache["bt"]
         base = cache["length"]
         n_blocks, bs_blk = pk.shape[0], pk.shape[1]
@@ -413,13 +493,17 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
         # pool interleaves requests at different positions; a multi-token
         # append is chunked prefill or a speculative verify); positions at
         # or past max_seq (parked rows, draft spill) drop
-        qg = _group(q, cfg.n_kv_heads)
+        qg = _group(_whole_heads(q), cfg.n_kv_heads)
         k_cache, v_cache = cache["k"], cache["v"]
         base = cache["length"]
         t = k_cache.shape[1]
-        plan = cache.get("plan") or dense_plan(base, s, t)
-        put(k_cache.view(-1, *k_cache.shape[2:]), plan, k.flatten(0, 1))
-        put(v_cache.view(-1, *v_cache.shape[2:]), plan, v.flatten(0, 1))
+        if isinstance(k_cache, DTensor):
+            put_sharded(k_cache, k, base, s)
+            put_sharded(v_cache, v, base, s)
+        else:
+            plan = cache.get("plan") or dense_plan(base, s, t)
+            put(k_cache.view(-1, *k_cache.shape[2:]), plan, k.flatten(0, 1))
+            put(v_cache.view(-1, *v_cache.shape[2:]), plan, v.flatten(0, 1))
         k_cache = shard(k_cache, "batch", "seq_sp", None, "head_dim")
         v_cache = shard(v_cache, "batch", "seq_sp", None, "head_dim")
         lengths = base + s

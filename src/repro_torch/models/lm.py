@@ -30,6 +30,7 @@ import math
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.core import trace
 from repro_torch.core.instrument import capturing, op_hook
 from repro_torch.dist.sharding import einsum, shard, take_rows
 from .config import ModelConfig
@@ -176,12 +177,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``{"kv": {"k","v": (layers, B, max_seq, Hkv, D), "length": (B,)}}``
     for the attention families; SSM states (conv tails in the compute
     dtype, the scan state in float32) for ssm; both for hybrid, with one
-    KV slot per shared-attention application."""
-    if cfg.kv_two_tier and cfg.family != "hybrid":
-        raise NotImplementedError(
-            "the two-tier KV cache (kv_two_tier) belongs to "
-            "sequence-sharded decode, which waits for distribution "
-            "(ROADMAP queue 1, item 7)")
+    KV slot per shared-attention application.  ``kv_two_tier`` (not for
+    hybrid, as the reference) adds the recent buffers ``"rk"``, ``"rv"``
+    (layers, B, kv_recent_len, Hkv, D) and ``"main_len"`` (B,)."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg.dtype)
 
@@ -193,7 +191,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
     def kv(n):
         shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": zeros(*shape), "v": zeros(*shape), "length": length()}
+        out = {"k": zeros(*shape), "v": zeros(*shape), "length": length()}
+        if cfg.kv_two_tier and cfg.family != "hybrid":
+            recent = (n, batch, cfg.kv_recent_len, cfg.n_kv_heads,
+                      cfg.head_dim)
+            out.update(rk=zeros(*recent), rv=zeros(*recent),
+                       main_len=length())
+        return out
 
     def ssm(*lead):
         gs = cfg.ssm_groups * cfg.ssm_state
@@ -217,6 +221,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return out
 
 
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical sharding for caches: KV sequence shards over `model` (SP
+    flash-decode), batch over data axes; SSM heads over `model`; the
+    two-tier recent buffers are sequence-replicated."""
+    kv = {"k": (None, "batch", "seq_sp", None, None),
+          "v": (None, "batch", "seq_sp", None, None),
+          "length": (None,)}
+    if cfg.kv_two_tier and cfg.family != "hybrid":
+        kv.update({"rk": (None, "batch", None, None, None),
+                   "rv": (None, "batch", None, None, None),
+                   "main_len": (None,)})
+
+    def ssm(n):
+        return {"conv_x": (None,) * n + ("batch", None, "p_ssm_inner"),
+                "conv_B": (None,) * n + ("batch", None, None),
+                "conv_C": (None,) * n + ("batch", None, None),
+                "ssm": (None,) * n + ("batch", "ssm_heads", None, None)}
+
+    if cfg.family in ATTN_FAMILIES:
+        return {"kv": kv}
+    if cfg.family == "ssm":
+        return {"ssm": ssm(1), "length": (None,)}
+    out = {"kv": kv, "ssm_groups": ssm(2)}
+    if cfg.n_layers % cfg.shared_attn_every:
+        out["ssm_tail"] = ssm(1)
+    return out
+
+
 def _cache_length(cache: dict, cfg: ModelConfig):
     if "kv" in cache:
         return cache["kv"]["length"]
@@ -235,16 +267,25 @@ def _stack_states(states: list) -> dict:
 
 def _kv_plan(kv: dict, s: int):
     """The write plan (and paged gather table) every layer of one forward
-    shares: built once per forward, not once per layer."""
-    if "rk" in kv:
-        raise NotImplementedError(
-            "the two-tier KV cache (kv_two_tier) belongs to "
-            "sequence-sharded decode, which waits for distribution "
-            "(ROADMAP queue 1, item 7)")
+    shares: built once per forward, not once per layer.  The two-tier
+    cache writes its recent buffer at one offset and needs none, and a
+    sharded (DTensor) cache plans each rank's block itself."""
+    if "rk" in kv or isinstance(kv.get("k", kv.get("pk")), DTensor):
+        return None
     if "pk" in kv:
         return L.paged_plan(kv["bt"], kv["length"], s, kv["pk"].shape[1],
                             kv["pk"].shape[2])
     return L.dense_plan(kv["length"], s, kv["k"].shape[2])
+
+
+def _kv_layer(kv: dict, i: int, plan) -> dict:
+    """Layer ``i``'s slice of a dense (or two-tier) KV cache; the slices
+    are views, written in place."""
+    out = {"k": kv["k"][i], "v": kv["v"][i], "length": kv["length"],
+           "plan": plan}
+    if "rk" in kv:
+        out.update(rk=kv["rk"][i], rv=kv["rv"][i], main_len=kv["main_len"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +356,7 @@ def _run_stacked_attn(params, h, cfg, positions, cache=None,
     b, s = h.shape[0], h.shape[1]
     if cache is None:
         ks, vs = [], []
-        for i in range(n):
+        for i in trace.loop("layers", n):
             op_hook(f"layer{i}", (h,), ())
             h, kv, _aux = _attn_block(_tree_at(layers, i), h, cfg, positions)
             if return_cache:
@@ -329,13 +370,12 @@ def _run_stacked_attn(params, h, cfg, positions, cache=None,
     kv = cache["kv"]
     plan = _kv_plan(kv, s)
     paged = "pk" in kv
-    for i in range(n):
+    for i in trace.loop("layers", n):
         if paged:
             kv_i = {"pk": kv["pk"][i], "pv": kv["pv"][i], "bt": kv["bt"],
                     "length": kv["length"], "plan": plan}
         else:
-            kv_i = {"k": kv["k"][i], "v": kv["v"][i],
-                    "length": kv["length"], "plan": plan}
+            kv_i = _kv_layer(kv, i, plan)
         h, _kv, _aux = _attn_block(_tree_at(layers, i), h, cfg, positions,
                                    kv_i)
     return h, {"kv": {**kv, "length": kv["length"] + s}}
@@ -347,7 +387,7 @@ def _run_stacked_ssm(params, h, cfg, positions=None, cache=None,
     layers = params["layers"]
     n = _n_stacked(layers)
     states = []
-    for i in range(n):
+    for i in trace.loop("layers", n):
         op_hook(f"layer{i}", (h,), ())
         st = _tree_at(cache["ssm"], i) if cache is not None else None
         h, new_st = _mamba_block(_tree_at(layers, i), h, cfg, st)
@@ -374,7 +414,7 @@ def _run_hybrid(params, h, cfg, positions, cache=None, return_cache=False):
     kv = cache["kv"] if cache is not None else None
     plan = _kv_plan(kv, s) if kv is not None else None
     group_states, ks, vs = [], [], []
-    for gi in range(n_g):
+    for gi in trace.loop("layers", n_g):
         states = []
         for li in range(every):
             op_hook(f"group{gi}.layer{li}", (h,), ())
@@ -387,8 +427,7 @@ def _run_hybrid(params, h, cfg, positions, cache=None, return_cache=False):
         op_hook(f"group{gi}.shared_attn", (h,), ())
         kv_i = None
         if kv is not None:
-            kv_i = {"k": kv["k"][gi], "v": kv["v"][gi],
-                    "length": kv["length"], "plan": plan}
+            kv_i = _kv_layer(kv, gi, plan)
         h, new_kv, _aux = _attn_block(shared, h, cfg, positions, kv_i)
         if keep:
             group_states.append(_stack_states(states))

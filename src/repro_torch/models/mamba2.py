@@ -187,6 +187,10 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dt_raw = einsum("bsd,dh->bsh", x, p["w_dt"].to(dt_))
     z = shard(z, "batch", "seq", "p_ssm_inner")
     xs = shard(xs, "batch", "seq", "p_ssm_inner")
+    # a partial sum here (x sharded over its contracted width) meets the
+    # head-sharded dt_bias below, which some torch releases cannot
+    # redistribute; the heads' placement is the one the green table gives
+    dt_raw = shard(dt_raw, "batch", "seq", "ssm_heads")
 
     st = state or {}
     xs, conv_x = _causal_conv(xs, p["conv_x"].to(dt_), st.get("conv_x"))

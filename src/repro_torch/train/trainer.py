@@ -49,12 +49,13 @@ import torch
 from torch.distributed.tensor import (DTensor, Partial, distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.core import trace
 from repro_torch.dist.collectives import (make_pod_sync, psum_start,
                                           psum_wait)
 from repro_torch.dist.sharding import (axis_sizes, get_mesh, get_rules,
                                        logical, placements, set_mesh)
-from repro_torch.models import cross_entropy, forward, init_params, \
-    param_axes
+from repro_torch.models import (cache_axes, cross_entropy, forward,
+                                init_cache, init_params, param_axes)
 from repro_torch.models.config import ModelConfig
 from .optimizer import (OptConfig, adamw_update, init_opt_state,
                         opt_state_axes, tree_map, tree_paths)
@@ -361,7 +362,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             assert b % m == 0, (b, m)
             grads = tree_map(torch.zeros_like, used)
             lsum = torch.zeros((), dtype=torch.float32, device=inputs.device)
-            for i in range(m):
+            for i in trace.loop("microbatches", m):
                 l, _p, g = _loss_and_grads(used, _microbatch(inputs, i, m),
                                            _microbatch(labels, i, m), cfg)
                 grads = tree_map(torch.add, grads, g)
@@ -379,9 +380,45 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         return new_params, new_opt, {k: _plain(v) for k, v in metrics.items()}
 
     def train_step(params: dict, opt_state: dict, batch: dict):
-        ctx = (implicit_replication() if get_mesh() is not None
-               else contextlib.nullcontext())
-        with ctx:
+        with _on_mesh():
             return step(params, opt_state, batch)
 
     return train_step
+
+
+def _on_mesh():
+    """DTensor's ``implicit_replication`` when a mesh is registered (plain
+    tensors made inside the model act as replicated)."""
+    return (implicit_replication() if get_mesh() is not None
+            else contextlib.nullcontext())
+
+
+# --------------------------------------------------------------- serve step
+def make_prefill_step(cfg: ModelConfig):
+    """``(params, inputs) -> (logits of the last position, caches)``."""
+    def prefill_step(params: dict, inputs):
+        with torch.no_grad(), _on_mesh():
+            return forward(params, inputs, cfg, return_cache=True,
+                           logits_mode="last")
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``(params, cache, tokens) -> (logits, cache)``: one append at each
+    row's length (the KV caches are written in place)."""
+    def decode_step(params: dict, cache: dict, tokens):
+        with torch.no_grad(), _on_mesh():
+            return forward(params, tokens, cfg, cache=cache,
+                           logits_mode="last")
+    return decode_step
+
+
+def serve_shardings(mesh, cfg: ModelConfig, batch: int, max_seq: int):
+    """(param_shardings, cache_shardings, param_shapes, cache_shapes):
+    params and caches on the ``meta`` device, placed by the rule table over
+    ``param_axes`` and ``cache_axes``."""
+    p_shapes, _ = abstract_state(cfg)
+    p_sh = tree_shardings(mesh, param_axes(cfg), p_shapes)
+    c_shapes = init_cache(cfg, batch, max_seq, device="meta")
+    c_sh = tree_shardings(mesh, cache_axes(cfg), c_shapes)
+    return p_sh, c_sh, p_shapes, c_shapes

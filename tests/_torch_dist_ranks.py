@@ -244,9 +244,60 @@ def case_pipeline(rank, d):
         _save(d, "pipeline", **out)
 
 
+# ------------------------------------------------------- decode on a mesh
+def case_decode(rank, d):
+    """Decode steps on data 2 × model 2, for each (batch, max_seq) in the
+    inputs: the logits of every step and the whole caches at the end.
+    "even" places the cache by ``serve_shardings`` (batch over data,
+    sequence over model); "uneven" places K/V so by hand, as the rule
+    table does not (it shards only a dimension that divides), so that the
+    last ranks hold shorter blocks."""
+    import dataclasses
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+    import repro_torch.configs as TC
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.models import init_cache
+    from repro_torch.train.trainer import (batch_shardings,
+                                           make_decode_step, place,
+                                           serve_shardings)
+
+    arch = "glm4-9b"
+    with open(os.path.join(d, "overrides.json")) as f:
+        cfg = dataclasses.replace(TC.reduced(TC.get(arch)),
+                                  **json.load(f).get(arch, {}))
+    params = _tree(np.load(os.path.join(d, f"w_{arch}.npz")))
+    inp = np.load(os.path.join(d, "in_decode.npz"))
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    set_mesh(mesh)
+    step = make_decode_step(cfg)
+    out = {}
+    for name in ("even", "uneven"):
+        toks = torch.from_numpy(inp[f"{name}_tokens"]).long()
+        lengths = torch.from_numpy(inp[f"{name}_lengths"])
+        b, max_seq = toks.shape[0], int(inp[f"{name}_max_seq"])
+        p_sh, c_sh, _ps, _cs = serve_shardings(mesh, cfg, b, max_seq)
+        if name == "uneven":
+            # (layers, batch, seq, kv heads, head dim)
+            c_sh["kv"]["k"] = c_sh["kv"]["v"] = (Shard(1), Shard(2))
+        cache = init_cache(cfg, b, max_seq, device="cpu")
+        cache["kv"]["length"] = lengths.clone()
+        dp, dc = place(params, p_sh, mesh), place(cache, c_sh, mesh)
+        for t in range(toks.shape[1]):
+            tok = {"tokens": toks[:, t:t + 1]}
+            tok = place(tok, batch_shardings(mesh, tok), mesh)["tokens"]
+            logits, dc = step(dp, dc, tok)
+            out[f"{name}/logits{t}"] = logits.full_tensor().numpy()
+        out.update({f"{name}/cache/{k}": v
+                    for k, v in _flat(dc).items()})
+    set_mesh(None)
+    if rank == 0:
+        _save(d, "decode", **out)
+
+
 CASES = [case_collectives, case_pipeline, case_sync, case_step_qwen3,
          case_step_dbrx, case_step_dbrx_model, case_step_ssm,
-         case_step_hybrid]
+         case_step_hybrid, case_decode]
 
 
 def _rank(rank: int, world: int, d: str) -> None:

@@ -361,17 +361,26 @@ def test_blocked_threshold_routes_prefill_through_blocked(arch):
 
 
 def test_two_tier_cache_raises_naming_distribution():
+    """The two-tier KV cache (``kv_two_tier``) came with distribution's
+    serving half: ``init_cache`` builds it and ``forward`` decodes
+    through it (held against the reference in
+    tests/test_torch_serve_steps.py).  What still raises is the serving
+    pools, which refuse the layout as the reference's do."""
+    from repro_torch.serve.cache import KVSlotPool, PagedKVPool
     tcfg = dataclasses.replace(TC.reduced(TC.get("glm4-9b")),
                                kv_two_tier=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        init_cache(tcfg, 1, 8, "cpu")
+    cache = init_cache(tcfg, 1, 8, "cpu")
+    assert {"rk", "rv", "main_len"} <= set(cache["kv"])
     params = params_from_numpy(_np(jinit_params(
         jax.random.PRNGKey(0), RC.reduced(RC.get("glm4-9b")))), "cpu")
-    cache = init_cache(TC.reduced(TC.get("glm4-9b")), 1, 8, "cpu")
-    cache["kv"]["rk"] = cache["kv"]["k"][:, :, :2].clone()
-    with pytest.raises(NotImplementedError, match="two-tier"):
-        _tforward(params, torch.zeros((1, 1), dtype=torch.int32),
-                  TC.reduced(TC.get("glm4-9b")), cache=cache)
+    logits, new = _tforward(params, torch.zeros((1, 1), dtype=torch.int32),
+                            tcfg, cache=cache)
+    assert torch.isfinite(logits).all()
+    assert int(new["kv"]["length"][0]) == 1
+    assert int(new["kv"]["main_len"][0]) == 0
+    for pool in (KVSlotPool, PagedKVPool):
+        with pytest.raises(NotImplementedError, match="kv_two_tier"):
+            pool(tcfg, 1, 8, device="cpu")
 
 
 def test_ssm_state_pieces_match_reference():

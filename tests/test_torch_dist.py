@@ -33,6 +33,12 @@ each case held here against the reference on the same inputs.
   1e-5 of the sequential layers (the reference's bound) and the gradients
   within 1e-5 of the sequential ones (``jax.grad`` of the reference's
   sequential loop).
+* Decode on data 2 × model 2 (reduced glm4-9b with two KV heads, rows
+  starting at different lengths): eight ``make_decode_step`` calls with
+  K/V sharded over batch and sequence — placed by ``serve_shardings``,
+  and by hand with blocks that do not divide evenly — against the
+  reference's single-device decode: every step's logits and the whole
+  caches within 1e-5 (rtol = atol).
 """
 
 import dataclasses
@@ -74,7 +80,14 @@ ARCHS = {"qwen3-32b": (4, 32), "dbrx-132b": (4, 32), "paper-gpt2": (8, 32),
 #: config fields set on both packages' reduced configs: two KV heads, so
 #: the model dimension shards the KV heads as it does at full width (the
 #: reduced qwen3-32b has one)
-OVERRIDES = {"qwen3-32b": {"n_kv_heads": 2}}
+OVERRIDES = {"qwen3-32b": {"n_kv_heads": 2}, "glm4-9b": {"n_kv_heads": 2}}
+#: decode on data 2 × model 2: (batch, max_seq, each row's starting
+#: length); "uneven" (K/V placed by hand, batch over data and sequence
+#: over model) leaves the last data rank one row and the last model rank
+#: a shorter block of the sequence (7 + 6), across which the writes run
+DECODE = {"even": (4, 16, [0, 3, 5, 1]), "uneven": (3, 13, [0, 2, 5])}
+DECODE_STEPS = 8
+DECODE_TOL = 1e-5         # rtol = atol, float32 sums in another order
 
 
 @pytest.fixture(autouse=True)
@@ -118,6 +131,23 @@ def _collective_inputs():
     return out
 
 
+def _decode_params():
+    jcfg = dataclasses.replace(RC.reduced(RC.get("glm4-9b")),
+                               **OVERRIDES["glm4-9b"])
+    return jcfg, jinit_params(jax.random.PRNGKey(0), jcfg)
+
+
+def _decode_inputs(vocab: int) -> dict:
+    rng = np.random.default_rng(5)
+    out = {}
+    for name, (b, max_seq, lengths) in DECODE.items():
+        out[f"{name}_tokens"] = rng.integers(0, vocab, (b, DECODE_STEPS),
+                                             dtype=np.int32)
+        out[f"{name}_lengths"] = np.array(lengths, np.int32)
+        out[f"{name}_max_seq"] = np.int64(max_seq)
+    return out
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Write the inputs, spawn the ranks once, return the results dir."""
@@ -129,6 +159,10 @@ def ranks(tmp_path_factory):
         _jcfg, params, x, y = _inputs(arch)
         np.savez(os.path.join(d, f"w_{arch}.npz"), **_flat(params))
         np.savez(os.path.join(d, f"in_{arch}.npz"), inputs=x, labels=y)
+    jcfg, params = _decode_params()
+    np.savez(os.path.join(d, "w_glm4-9b.npz"), **_flat(params))
+    np.savez(os.path.join(d, "in_decode.npz"),
+             **_decode_inputs(jcfg.vocab_size))
     rng = np.random.default_rng(0)
     np.savez(os.path.join(d, "in_pipeline.npz"),
              ws=(rng.standard_normal((8, 16, 16)) * 0.2).astype(np.float32),
@@ -318,3 +352,33 @@ def test_pipeline_forward_and_grads_match_sequential(ranks, mesh):
     assert np.abs(got[f"{mesh}/ys"] - np.asarray(want)).max() < 1e-5
     assert np.abs(got[f"{mesh}/grad"] - np.asarray(gwant)).max() < 1e-5
     assert np.abs(got[f"{mesh}/grad"]).sum() > 0
+
+
+# ------------------------------------------------------- decode on a mesh
+@pytest.mark.parametrize("name", sorted(DECODE))
+def test_sharded_decode_matches_single_device(ranks, name):
+    """``make_decode_step`` on data 2 × model 2 with the K/V caches
+    sharded over batch and sequence (each rank writes its own block),
+    even by ``serve_shardings`` and uneven by hand, against
+    the reference's single-device decode from the same caches: every
+    step's logits and the whole caches at the end."""
+    from repro.models import init_cache as jinit_cache
+    from repro.train import trainer as jtrainer
+    jcfg, params = _decode_params()
+    inp = _decode_inputs(jcfg.vocab_size)
+    toks = inp[f"{name}_tokens"]
+    b, max_seq, lengths = DECODE[name]
+    jc = jinit_cache(jcfg, b, max_seq)
+    jc["kv"]["length"] = jnp.asarray(lengths, jnp.int32)
+    step = jtrainer.make_decode_step(jcfg)
+    got = _load(ranks, "decode")
+    for t in range(DECODE_STEPS):
+        jl, jc = step(params, jc, toks[:, t:t + 1])
+        np.testing.assert_allclose(got[f"{name}/logits{t}"], np.asarray(jl),
+                                   rtol=DECODE_TOL, atol=DECODE_TOL,
+                                   err_msg=f"step {t}")
+    want = _flat(jc)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[f"{name}/cache/{k}"], v,
+                                   rtol=DECODE_TOL, atol=DECODE_TOL,
+                                   err_msg=k)

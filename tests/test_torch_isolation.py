@@ -52,7 +52,12 @@ PORTED = ("repro_torch.kernels.instrumented_matmul",
           "repro_torch.dist.sharding", "repro_torch.dist.collectives",
           "repro_torch.dist.pipeline", "repro_torch.launch.mesh",
           "repro_torch.launch.train", "repro_torch.train.checkpoint",
-          "repro_torch.train.elastic")
+          "repro_torch.train.elastic", "repro_torch.analysis",
+          "repro_torch.analysis.base", "repro_torch.analysis.findings",
+          "repro_torch.analysis.collectives", "repro_torch.analysis.dtype",
+          "repro_torch.analysis.memory", "repro_torch.core.trace",
+          "repro_torch.configs.shapes", "repro_torch.launch.lint",
+          "repro_torch.launch.dryrun")
 
 
 @pytest.fixture(autouse=True)
@@ -96,6 +101,20 @@ def test_quickstart_defaults_to_the_card():
     from repro_torch.launch import quickstart
     with pytest.raises((RuntimeError, AssertionError)):
         quickstart.run(configs.reduced(configs.get("paper-gpt2")))
+
+
+def test_lint_and_dryrun_default_to_the_card():
+    """``repro_torch.launch.lint`` and ``repro_torch.launch.dryrun`` make
+    their fake tensors of the card's type unless given ``--device cpu``."""
+    import inspect
+    from repro_torch.launch import dryrun, lint
+    for mod in (lint, dryrun):
+        assert mod._parser().parse_args([]).device == "cuda"
+        assert mod._parser().parse_args(["--device", "cpu"]).device == "cpu"
+    assert inspect.signature(lint.smoke_cell).parameters["device"] \
+        .default == "cuda"
+    assert inspect.signature(dryrun.run_cell).parameters["device"] \
+        .default == "cuda"
 
 
 def test_serve_launcher_defaults_to_the_card():

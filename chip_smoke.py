@@ -72,7 +72,10 @@ non-zero and print no result):
                 train step's device kernels (cuBLAS GEMMs and elementwise
                 kernels, not aten names), the roofline report has bytes and
                 FLOPs; and the capture's own cost, the profiled step against
-                the plain one;
+                the plain one; before and after it, how many of one fill's
+                and one negation's device records a short profiler session
+                keeps, by this script's probe and by plain
+                ``torch.profiler`` with no code of the port;
  12. serving  — (run after phase 11) ``repro_torch.launch.serve`` on
                 glm4-9b at full width and depth with the example's traffic
                 (8 requests at 2 req/s on 4 slots, a 16-token shared
@@ -96,22 +99,30 @@ non-zero and print no result):
                 one stablelm-1.6b step on a (1, 1) mesh against the plain
                 step (bit for bit), and ``repro_torch.launch.train`` on
                 stablelm-1.6b (full width and depth unless the disk cannot
-                hold two checkpoints), 4 steps with a checkpoint every 2
+                hold two checkpoints or write them in 240 s, which its
+                probe measures first), 4 steps with a checkpoint every 2
                 and a failure at step 3, whose losses must equal an
                 uninterrupted run's bit for bit (deterministic algorithms);
                 the multi-rank collectives are not exercised at world 1.
                 With four: glm4-9b at full width and depth on data 2 x
                 model 2 (3 steps, one captured step's NCCL kernels and
-                wire bytes), stablelm-1.6b on pod 2 x data 2 in the three
-                explicit sync modes against the single-card step, and the
-                GPipe ring on pipe 4 against the layers in sequence.
+                wire bytes) and on data 1 x model 4 (its 2 KV heads stay
+                whole on every card, its 32 query heads split 8 a card;
+                the first step's loss and grad norm within
+                ``MODEL4_RTOL`` of the 2 x 2 step's), stablelm-1.6b on pod
+                2 x data 2 in the three explicit sync modes against the
+                single-card step, and the GPipe ring on pipe 4 against the
+                layers in sequence.
  14. static   — (run last, in a child process: phase 13 ran real process
                 groups) the static half: ``repro_torch.launch.lint``'s
                 smoke grid with fake CUDA tensors must exit 0 green and 1
                 with each seeded defect (reshard, blocking); dry-run cells
                 on the fake 16 x 16 mesh (qwen3-32b train_4k, prefill_32k,
                 decode_32k; mamba2-2.7b long_500k) print their trace time,
-                state bytes per device and roofline terms, and kimi-k2
+                state bytes per device and roofline terms, and their
+                FLOPs, HBM bytes and collective bytes per device beside
+                the reference's (XLA:CPU, ROADMAP.md section 3), qwen3-32b
+                train_4k and prefill_32k at most 1.25x its FLOPs; kimi-k2
                 train_4k on 2 x 16 x 16 runs in a child of its own, kept
                 if it ends within 10 minutes; the peak estimate of a
                 full-width stablelm-1.6b train step against
@@ -155,7 +166,9 @@ CARD = ""                       # "name, power limit", set by main()
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only the end of one still sees it
     print(f"FAIL {msg}", flush=True)
+    print(f"FAIL {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1643,10 +1656,22 @@ DIST_TIMEOUT_S = 900            # the ranks' join, every part included
 #: card against itself, float32 weights and moments: stablelm-1.6b's
 #: checkpoint is its weights and two moments, 12 bytes a parameter
 CKPT_BYTES_PER_PARAM = 12
+#: the full-size restart writes two checkpoints (2 x 19.7 GB); where the
+#: checkpoint directory's disk would take longer than this for them, or
+#: cannot hold them with a quarter to spare, the restart runs the reduced
+#: model, so that the phase stays well inside the script's time
+CKPT_WRITE_BUDGET_S = 240
+CKPT_PROBE_BYTES = 1 << 30      # the write-rate probe: 1 GiB, fsync'ed
 #: tests/test_torch_dist.py's bounds on an explicit sync mode's step
 #: against the single-device step (the reference's, tests/test_dist.py)
 SYNC_LOSS_ATOL, SYNC_GNORM_RTOL = 2e-3, 2e-2
 PIPE_ATOL = 1e-5                # the reference's pipeline bound
+#: glm4-9b's first step on data 1 x model 4 against data 2 x model 2,
+#: relative, on the loss and the grad norm: bf16 compute (8 bits of
+#: mantissa, 2**-8 a rounding) whose partial sums fall on other ranks in
+#: another order; a step whose attention lost heads or a K/V gradient
+#: its sum over ranks moves both by far more
+MODEL4_RTOL = 1e-2
 
 
 def _card_batch(cfg, device, batch=2, seq=64) -> dict:
@@ -1727,17 +1752,35 @@ def _mesh_step_equals_plain(cfg) -> dict:
             "plain_s": plain_s, "mesh_s": mesh_s}
 
 
+def _write_rate(d: str) -> float:
+    """Bytes a second that the disk under ``d`` takes: CKPT_PROBE_BYTES of
+    random bytes written and fsync'ed, then removed."""
+    chunk = np.random.default_rng(SEED).bytes(64 << 20)
+    path = os.path.join(d, "write_probe")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(CKPT_PROBE_BYTES // len(chunk)):
+            f.write(chunk)
+        f.flush()
+        os.fsync(f.fileno())
+    secs = time.perf_counter() - t0
+    os.remove(path)
+    return CKPT_PROBE_BYTES / secs
+
+
 def _driver_restart(tmp: str) -> dict:
     """``repro_torch.launch.train`` on stablelm-1.6b (full unless the disk
-    cannot hold two checkpoints): 4 steps with a checkpoint every 2 and a
-    failure injected at step 3, then 4 uninterrupted steps."""
+    cannot hold two checkpoints, or would take more than
+    CKPT_WRITE_BUDGET_S to write them): 4 steps with a checkpoint every 2
+    and a failure injected at step 3, then 4 uninterrupted steps."""
     import shutil
     from repro_torch.launch import train as tl
     from repro_torch.train import checkpoint as ckpt
     cfg = configs.get("stablelm-1.6b")
     need = 2 * CKPT_BYTES_PER_PARAM * cfg.n_params
     free = shutil.disk_usage(tmp).free
-    reduced = free < 1.1 * need
+    rate = _write_rate(tmp)
+    reduced = free < 1.25 * need or need / rate > CKPT_WRITE_BUDGET_S
     common = ["--arch", cfg.name, "--device", "cuda", "--steps", "4",
               "--seq-len", "64", "--global-batch", "2",
               "--pasta-tools", "kernel_freq"] + (["--reduced"] if reduced
@@ -1778,6 +1821,7 @@ def _driver_restart(tmp: str) -> dict:
     for s, loss in seen:
         replay_equal &= by_step.setdefault(s, loss) == loss
     return {"reduced": reduced, "free_gb": free / 1e9, "need_gb": need / 1e9,
+            "write_gb_s": rate / 1e9,
             "restarts": restarts, "seen": seen, "uninterrupted": want,
             "replay_equal": replay_equal,
             "equal": [by_step.get(s) for s, _l in want] == [l for _s, l
@@ -1798,16 +1842,17 @@ def _sync_barrier() -> None:
     torch.distributed.barrier()
 
 
-def _four_glm4(rank: int) -> dict:
-    """glm4-9b at full width and depth on data 2 × model 2: three steps,
-    then one captured step (its NCCL kernels and wire bytes)."""
+def _four_glm4(rank: int, shape=(2, 2), captured: bool = True) -> dict:
+    """glm4-9b at full width and depth on data × model ``shape``: three
+    steps, then (``captured``) one captured step (its NCCL kernels and
+    wire bytes)."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.dist.sharding import set_mesh
     from repro_torch.train.trainer import (batch_shardings, place,
                                            train_shardings)
     cfg = configs.get("glm4-9b")
     dev = f"cuda:{rank}"
-    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
     set_mesh(mesh)
     try:
         opt_cfg = OptConfig()
@@ -1819,31 +1864,33 @@ def _four_glm4(rank: int) -> dict:
         db = place(batch, batch_shardings(mesh, batch), mesh)
         step = make_train_step(cfg, opt_cfg)
         torch.cuda.reset_peak_memory_stats()
-        secs, losses = [], []
+        secs, losses, norms = [], [], []
         for _ in range(3):
             _sync_barrier()
             t0 = time.perf_counter()
             params, opt, m = step(params, opt, db)
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
             _sync_barrier()
             secs.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated()
-        with pasta.Session(tools="kernel_freq", name="dist") as session:
-            art = capture.capture_step(step, params, opt, db)
-            stats = session.capture_compiled(art, label="train_step",
-                                             default_trip=cfg.n_layers,
-                                             steps=1)
-            kf = session.reports()["kernel_freq"]
-        nccl = {}
-        for inst in stats.collective_instances:
-            nccl[inst["name"]] = nccl.get(inst["name"], 0) + 1
-        out = {"secs": secs, "losses": losses, "peak_gb": peak / 1e9,
-               "nccl_kernels": nccl,
-               "wire_bytes": dict(stats.collective_wire_bytes),
-               "collective_bytes": dict(stats.collective_bytes),
-               "kernel_freq_total": kf["total_invocations"],
-               "kernel_freq_distinct": kf["distinct_kernels"],
-               "capture_s": art.seconds, "lost": art.lost}
+        out = {"secs": secs, "losses": losses, "grad_norms": norms,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if captured:
+            with pasta.Session(tools="kernel_freq", name="dist") as session:
+                art = capture.capture_step(step, params, opt, db)
+                stats = session.capture_compiled(art, label="train_step",
+                                                 default_trip=cfg.n_layers,
+                                                 steps=1)
+                kf = session.reports()["kernel_freq"]
+            nccl = {}
+            for inst in stats.collective_instances:
+                nccl[inst["name"]] = nccl.get(inst["name"], 0) + 1
+            out.update(nccl_kernels=nccl,
+                       wire_bytes=dict(stats.collective_wire_bytes),
+                       collective_bytes=dict(stats.collective_bytes),
+                       kernel_freq_total=kf["total_invocations"],
+                       kernel_freq_distinct=kf["distinct_kernels"],
+                       capture_s=art.seconds, lost=art.lost)
     finally:
         set_mesh(None)
     del params, opt
@@ -1957,7 +2004,9 @@ def _dist_rank(rank: int, world: int, tmp: str) -> None:
         if world == 1:
             out = _dist_one_card(tmp)
         else:
-            out = {"glm4": _four_glm4(rank), "sync": _four_sync(rank),
+            out = {"glm4": _four_glm4(rank),
+                   "glm4_model4": _four_glm4(rank, (1, 4), captured=False),
+                   "sync": _four_sync(rank),
                    "pipeline": _four_pipeline(rank)}
         out["launches"] = dict(ops.launches)
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1983,6 +2032,11 @@ def phase_dist() -> dict:
                               timeout=60).stdout.strip().splitlines()[0]
     world = 4 if torch.cuda.device_count() >= 4 else 1
     free_card()
+    card_free, card_total = torch.cuda.mem_get_info()
+    print(f"dist: this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) on "
+          f"card 0, which has {card_free / 1e9:.2f} of "
+          f"{card_total / 1e9:.2f} GB free for the ranks", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         print(f"dist: {world} NCCL rank(s), one per card; free disk "
               f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB at the "
@@ -2045,9 +2099,14 @@ def _dist_report_one(res) -> None:
         fail(f"dist: the (1, 1) mesh step differs from the plain step: "
              f"{ms['differ'][:5]} {ms['metrics_differ']}")
     d = r["driver"]
-    size = ("REDUCED (cut: the disk holds fewer than two full "
-            f"checkpoints, {d['free_gb']:.1f} of {d['need_gb']:.1f} GB)"
+    size = ("REDUCED (cut: two full checkpoints, "
+            f"{d['need_gb']:.1f} GB, need 1.25 x their size free and "
+            f"{CKPT_WRITE_BUDGET_S} s at the disk's rate)"
             if d["reduced"] else "full width and depth")
+    print(f"dist: the checkpoint directory's disk has {d['free_gb']:.1f} GB "
+          f"free and wrote {d['write_gb_s']:.3f} GB/s (1 GiB, fsync'ed): "
+          f"{d['need_gb'] / d['write_gb_s']:.1f} s for two full-size "
+          f"checkpoints", flush=True)
     print(f"dist: repro_torch.launch.train on stablelm-1.6b {size}, batch "
           f"2 x 64, 4 steps, checkpoint every 2, failure injected at step "
           f"3: restarts {d['restarts']}, losses as logged {d['seen']}, "
@@ -2081,6 +2140,25 @@ def _dist_report_four(res) -> None:
         fail("dist: glm4-9b losses not finite")
     if not g[0]["nccl_kernels"] or not g[0]["wire_bytes"]:
         fail("dist: the captured sharded step recorded no NCCL kernel")
+    h = [r["glm4_model4"] for r in res]
+    dloss = abs(h[0]["losses"][0] - g[0]["losses"][0]) / g[0]["losses"][0]
+    dnorm = abs(h[0]["grad_norms"][0] - g[0]["grad_norms"][0]) \
+        / g[0]["grad_norms"][0]
+    print(f"dist: glm4-9b full width and depth on data 1 x model 4 (32 "
+          f"query heads, 8 a card; 2 KV heads, replicated on model), batch "
+          f"2 x 64, 3 steps: losses {h[0]['losses']}, grad norms "
+          f"{h[0]['grad_norms']}; first step against data 2 x model 2 "
+          f"(loss {g[0]['losses'][0]!r}, grad norm "
+          f"{g[0]['grad_norms'][0]!r}): relative difference loss "
+          f"{dloss:.3e}, grad norm {dnorm:.3e} (limit {MODEL4_RTOL:g}); "
+          f"step times per card "
+          f"{[[round(t * 1e3, 1) for t in x['secs']] for x in h]} ms, peak "
+          f"memory per card over the steps "
+          f"{[round(x['peak_gb'], 2) for x in h]} GB; on {CARD}",
+          flush=True)
+    if dloss > MODEL4_RTOL or dnorm > MODEL4_RTOL:
+        fail("dist: glm4-9b on data 1 x model 4 differs from data 2 x "
+             "model 2")
     s = res[0]["sync"]
     single = s["single"]
     for name in ("blocking", "overlap", "overlap_int8"):
@@ -2114,6 +2192,20 @@ TWO_TIER_TOKENS = 16
 #: dry-run cells on the fake 16 x 16 production mesh
 DRYRUN_CELLS = (("qwen3-32b", "train_4k"), ("qwen3-32b", "prefill_32k"),
                 ("qwen3-32b", "decode_32k"), ("mamba2-2.7b", "long_500k"))
+#: the reference's figures per device of each dry-run cell (FLOPs, HBM
+#: bytes, collective bytes): its own dry-run compiled with Auto mesh axes
+#: for 512 host devices and read by its HLO walker on XLA:CPU (ROADMAP.md
+#: section 3)
+REFERENCE_CELLS = {
+    "qwen3-32b train_4k": (1.36e15, 2.49e13, 6.10e11),
+    "qwen3-32b prefill_32k": (6.23e14, 2.65e13, 1.75e11),
+    "qwen3-32b decode_32k": (6.68e10, 1.43e11, 7.24e8),
+    "mamba2-2.7b long_500k": (1.62e8, 4.12e8, 1.42e7),
+    "kimi-k2-1t-a32b train_4k": (7.37e14, 9.00e13, 5.18e12),
+}
+#: qwen3-32b's query heads split over model: at most this many times the
+#: reference's FLOPs per device (tests/test_torch_dryrun_parity.py)
+FLOPS_RATIO_MAX = 1.25
 
 
 def _static_lint() -> dict:
@@ -2324,6 +2416,22 @@ def phase_static() -> None:
               flush=True)
         if c["status"] != "ok" or not c["hlo"]["flops_per_device"] > 0:
             fail(f"static: dry-run cell {name} gave no FLOPs")
+        ref = REFERENCE_CELLS[name]
+        got = (c["hlo"]["flops_per_device"],
+               c["hlo"]["hbm_bytes_per_device"],
+               c["hlo"]["collective_total_bytes"])
+        ratios = [g / r for g, r in zip(got, ref)]
+        print(f"static dryrun: {name} per device, port / reference "
+              f"(reference, XLA:CPU, ROADMAP.md section 3): FLOPs "
+              f"{got[0]:.4g} / {ref[0]:.3g} = {ratios[0]:.3f}, HBM bytes "
+              f"{got[1]:.4g} / {ref[1]:.3g} = {ratios[1]:.3f}, collective "
+              f"bytes {got[2]:.4g} / {ref[2]:.3g} = {ratios[2]:.3f}; on "
+              f"{CARD}", flush=True)
+        if name.startswith("qwen3-32b") and name.endswith(("train_4k",
+                                                           "prefill_32k")) \
+                and ratios[0] > FLOPS_RATIO_MAX:
+            fail(f"static: {name} counts {ratios[0]:.3f} x the "
+                 f"reference's FLOPs per device")
     if kimi is None:
         print(f"static dryrun: kimi-k2-1t-a32b train_4k on 2x16x16 did not "
               f"end within {KIMI_TIMEOUT_S} s ({kimi_s:.1f} s), left out; "
@@ -2359,10 +2467,48 @@ def phase_static() -> None:
 def profiler_probe(when: str) -> None:
     """Print how many of one fill's and one negation's two device records
     a profiler session keeps (a short session late in this process has
-    been seen to keep fewer: PERF.md section 7)."""
+    been seen to keep fewer: PERF.md section 7), beside
+    :func:`plain_profiler_probe`."""
     n = len(device_ops(lambda: torch.ones(1 << 20, device="cuda").neg_()))
     print(f"profiler {when}: one fill and one negation record {n} device "
           "operations (2 expected)", flush=True)
+    plain_profiler_probe(when)
+
+
+def plain_profiler_probe(when: str) -> None:
+    """The same two operations under ``torch.profiler`` alone, with no
+    code of the port or of this script between them: after a
+    ``torch.cuda.synchronize()``, one session around a fill and a
+    negation, as ``core/capture.py`` opens one around a step.  Prints the
+    device records against the CUDA API launch calls (the same count
+    ``capture`` calls lost), once as is and once with 50 ms of host time
+    before the session stops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for wait in (0.0, 0.05):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            x = torch.ones(1 << 20, device="cuda")
+            x.neg_()
+            torch.cuda.synchronize()
+            time.sleep(wait)
+        ev = prof.events()
+        launched = [e.id for e in ev if e.device_type == DeviceType.CPU
+                    and e.name.startswith(("cudaLaunchKernel",
+                                           "cuLaunchKernel",
+                                           "cudaMemsetAsync",
+                                           "cudaMemcpyAsync"))]
+        recorded = {e.id for e in ev if e.device_type == DeviceType.CUDA}
+        counts.append((len(recorded), len(launched),
+                       sum(i not in recorded for i in launched)))
+    print(f"profiler {when}, plain torch.profiler (no code of the port): "
+          f"one fill and one negation record {counts[0][0]} device "
+          f"operations of {counts[0][1]} launched ({counts[0][2]} lost); "
+          f"with 50 ms before the session stops {counts[1][0]} of "
+          f"{counts[1][1]} ({counts[1][2]} lost); torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
 
 def main() -> None:

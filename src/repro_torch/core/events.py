@@ -452,3 +452,18 @@ class EventRing:
         self._any_event = False
         self._any_attrs = False
         return batch
+
+
+#: The reference's collective opcodes: the names COLLECTIVE events carry
+#: (``attrs["opcode"]``).  ``capture`` maps NCCL kernels onto them by name
+#: fragment and ``trace`` maps the dispatched collectives (DTensor's
+#: functional collectives, the c10d calls of ``dist.collectives``).
+COLLECTIVE_OPCODES = (
+    "all-gather",
+    "all-reduce",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+    "ragged-all-to-all",
+    "collective-broadcast",
+)

@@ -300,3 +300,36 @@ class EventHandler:
                                    "hidden_s": inst["hidden_s"],
                                    "wire_bytes": inst["wire_bytes"]}))
         return stats
+
+
+# ---------------------------------------------------------------------------
+# Deprecated process-global surface: thin shims over the implicit root
+# session (see repro_torch.core.session).  New code uses pasta.Session /
+# repro_torch.core.session.current_handler().
+# ---------------------------------------------------------------------------
+
+def default_handler() -> EventHandler:
+    """Deprecated: the old process-global handler accessor.  Resolves the
+    *current session's* handler (innermost active session, falling back
+    to the implicit root session)."""
+    import warnings
+    warnings.warn(
+        "pasta.default_handler() is deprecated; use pasta.Session (scoped "
+        "pipelines) or repro_torch.core.session.current_handler()",
+        DeprecationWarning, stacklevel=2)
+    from .session import current_handler
+    return current_handler()
+
+
+def attach(handler: EventHandler | None = None) -> EventHandler:
+    """Deprecated: install ``handler`` as the process-global default (the
+    paper's per-process LD_PRELOAD injection).  Replaces the implicit root
+    session's handler; scoped ``with pasta.Session(...)`` blocks are the
+    supported interface."""
+    import warnings
+    warnings.warn(
+        "pasta.attach() is deprecated; use `with pasta.Session(...)` — "
+        "scoped sessions replace the process-global handler",
+        DeprecationWarning, stacklevel=2)
+    from .session import _attach_root
+    return _attach_root(handler)

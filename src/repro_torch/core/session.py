@@ -380,6 +380,16 @@ def current_handler() -> EventHandler:
     return current_session().handler
 
 
+def _attach_root(handler: EventHandler | None = None) -> EventHandler:
+    """Back-end of the deprecated ``pasta.attach()``: replace the implicit
+    root session with a bare one wrapping ``handler``."""
+    global _root
+    if _root is not None:
+        _root.close()
+    _root = Session(name="root", handler=handler, _bare=True)
+    return _root.handler
+
+
 def reset_state() -> None:
     """Drop the implicit root session and any leaked current-session
     binding (test isolation)."""

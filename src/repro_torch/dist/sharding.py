@@ -332,8 +332,32 @@ def _register_missing_rules() -> None:
             if d not in flipped]
 
 
+class _Constrain(torch.autograd.Function):
+    """Identity that puts its value in ``target`` on the way forward and
+    its gradient in ``target`` on the way back: the transpose of JAX's
+    ``with_sharding_constraint`` is the same constraint on the cotangent.
+    (``DTensor.redistribute``'s backward returns the gradient in the
+    input's placements, so it leaves DTensor's propagation free to move
+    a gradient off the annotated layout.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, target):
+        ctx.mesh, ctx.target = mesh, target
+        if tuple(x.placements) == target:
+            return x.view_as(x)
+        return x.redistribute(mesh, target)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.target:
+            grad = grad.redistribute(ctx.mesh, ctx.target)
+        return grad, None, None
+
+
 def shard(x, *axes):
-    """Redistribute the DTensor ``x`` to ``logical(*axes)``.
+    """Constrain the DTensor ``x`` to ``logical(*axes)``: its value is
+    redistributed there, and so is the gradient that flows back through
+    this point, as the reference's sharding constraint does.
 
     A no-op when no mesh is registered, when ``x`` is a plain tensor (the
     single-device path, or a rank's local block), or when the annotation
@@ -346,9 +370,10 @@ def shard(x, *axes):
     if len(axes) != x.dim():
         return x
     target = logical(*axes, dims=x.shape, mesh=mesh)
-    if tuple(x.placements) == target:
-        return x
-    return x.redistribute(mesh, target)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return x if tuple(x.placements) == target \
+            else x.redistribute(mesh, target)
+    return _Constrain.apply(x, mesh, target)
 
 
 def einsum(equation: str, *operands):

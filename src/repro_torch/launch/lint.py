@@ -75,8 +75,9 @@ SMOKE_SPEC = ("exposed-collectives:link=dci,threshold_frac=1.1,"
               "peak-memory,host-sync")
 
 #: the baseline of the smoke grid: exact finding keys, each with its
-#: cause, from both torch releases (2.13 on a CPU mesh, 2.11 on the
-#: card's); the port ships none at the repo root
+#: cause, checked on both torch releases (2.13 on a CPU mesh, 2.11 on the
+#: card's): the loss's gathers of the vocab-sharded logits; the port
+#: ships none at the repo root
 BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "lint_baseline.json")
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.instrument import op_hook
 from repro_torch.dist.sharding import einsum, shard
@@ -54,6 +54,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    # over a sharded width (Mamba2's gated norm) the statistic is a
+    # partial sum: keep it, and its gradient, whole on every rank
+    var = shard(var, "batch", "seq", None)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
@@ -333,6 +336,20 @@ def dense_plan(base: torch.Tensor, s: int, max_seq: int) -> tuple:
                       (pos < max_seq).reshape(-1))
 
 
+def _block(x: DTensor, dim: int) -> tuple:
+    """``[start, stop)`` of this rank's block of ``x``'s dimension ``dim``
+    (``torch.chunk``'s split, mesh dimensions in order, as DTensor cuts
+    it)."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    start, size = 0, x.shape[dim]
+    for j, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(j))
+            off = min(coord[j] * chunk, size)
+            start, size = start + off, min(size - off, chunk)
+    return start, start + size
+
+
 def put_sharded(cache, vals, base, s: int) -> None:
     """:func:`put` of an S-token append at each row's ``base`` into a
     DTensor slot cache (B, T, ...) sharded over its batch and sequence
@@ -344,19 +361,12 @@ def put_sharded(cache, vals, base, s: int) -> None:
     dimensions in order, as DTensor cuts them)."""
     mesh, pl = cache.device_mesh, cache.placements
     local = cache.to_local()
-    coord = mesh.get_coordinate()
-    size, off = list(cache.shape[:2]), [0, 0]
-    for j, p in enumerate(pl):
-        if p.is_shard() and p.dim < 2:
-            chunk = -(-size[p.dim] // mesh.size(j))
-            start = min(coord[j] * chunk, size[p.dim])
-            off[p.dim] += start
-            size[p.dim] = min(size[p.dim] - start, chunk)
-    bl, tl = size
+    (r0, r1), (t0, t1) = _block(cache, 0), _block(cache, 1)
+    bl, tl = r1 - r0, t1 - t0
     if (bl, tl) != tuple(local.shape[:2]):
         raise ValueError(f"this rank's block {tuple(local.shape)} is not "
                          f"the chunk {(bl, tl)} of the cache")
-    rows = slice(off[0], off[0] + bl)
+    rows = slice(r0, r1)
     if isinstance(vals, DTensor):
         vals = vals.redistribute(mesh, [Shard(0) if p.is_shard(0)
                                         else Replicate() for p in pl])
@@ -367,8 +377,8 @@ def put_sharded(cache, vals, base, s: int) -> None:
     if local.numel() == 0:
         return          # this rank holds no block (after the collectives)
     pos = b[rows].long()[:, None] + torch.arange(s, device=local.device) \
-        - off[1]
-    valid = (pos >= 0) & (pos < tl) & (pos + off[1] < cache.shape[1])
+        - t0
+    valid = (pos >= 0) & (pos < tl) & (pos + t0 < cache.shape[1])
     r = torch.arange(bl, device=local.device)[:, None]
     plan = write_plan((r * tl + pos.clamp(0, tl - 1)).reshape(-1),
                       valid.reshape(-1))
@@ -406,16 +416,32 @@ def _whole_heads(q):
 
 def _per_shard(fn, q, k, v):
     """``fn(q, k, v)`` on each rank's block of the DTensors ``q``, ``k``,
-    ``v`` (batch over its data dimensions; heads over ``model`` where the
-    KV heads divide, query heads with them), the way the reference's
-    attention runs inside each shard: every (row, KV-head group) is
-    independent, and DTensor cannot flatten two sharded dimensions into
-    the batch of a batched matmul."""
-    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
-    mesh, pl = k.device_mesh, k.placements
-    out = fn(q.redistribute(mesh, pl).to_local(), k.to_local(),
-             v.redistribute(mesh, pl).to_local())
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+    ``v`` as :func:`_qkv` placed them, the way the reference's attention
+    runs inside each shard: the batch over its data dimensions, the query
+    heads over ``model``, and the KV heads over ``model`` only where they
+    divide it.  DTensor cannot flatten two sharded dimensions into the
+    batch of a batched matmul.
+
+    A rank holding query heads ``[a, b)`` (group size G) reads KV heads
+    ``[a // G, (b - 1) // G + 1)``.  Where its heads are whole groups or
+    lie in one group, ``fn`` groups them onto those KV heads; otherwise
+    each query head gets its own KV head (a group of one).  Where K/V are
+    replicated over a dimension that splits the query heads, each rank's
+    K/V gradient is its heads' share: a partial sum there."""
+    mesh = q.device_mesh
+    group = q.shape[2] // k.shape[2]
+    a, b = _block(q, 2)
+    k0, _ = _block(k, 2)
+    lo, hi = a // group - k0, (b - 1) // group + 1 - k0
+    grads = [Partial() if pq.is_shard(2) and not pk.is_shard(2) else pk
+             for pq, pk in zip(q.placements, k.placements)]
+    kl = k.to_local(grad_placements=grads)[:, :, lo:hi]
+    vl = v.to_local(grad_placements=grads)[:, :, lo:hi]
+    if (a % group or (b - a) % group) and hi - lo > 1:
+        idx = torch.arange(a, b, device=kl.device) // group - a // group
+        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    out = fn(q.to_local(), kl, vl)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,

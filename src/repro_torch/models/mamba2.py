@@ -208,6 +208,11 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                  dim=2)
     Bh = Bh.to(torch.float32)
     Ch = Ch.to(torch.float32)
+    # the replicated B/C sliced to this rank's heads, as the scan's other
+    # operands are: their gradients then sum over the heads before any
+    # collective (the reference's partitioner does so unannotated)
+    Bh = shard(Bh, "batch", "seq", "ssm_heads", None)
+    Ch = shard(Ch, "batch", "seq", "ssm_heads", None)
 
     if state is None and s > 1:
         chunk = min(cfg.ssm_chunk, s)

@@ -5,6 +5,9 @@ writes the inputs (the reference's weights, batches and payloads) and
 holds the results against the reference.
 
     PYTHONPATH=src python tests/_torch_dist_ranks.py <dir> <world> <timeout>
+        [case,...]
+
+The optional last argument names the cases to run (default: ``CASES``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,13 @@ def _flat(tree, prefix="") -> dict:
             v = v.full_tensor() if isinstance(v, DTensor) else v
             out[f"{prefix}{k}"] = v.detach().numpy()
     return out
+
+
+def _placements(x) -> np.ndarray:
+    """A DTensor's placements as "S<dim>", "R" or "P", one per mesh
+    dimension (``str`` of a placement differs between torch releases)."""
+    return np.array([f"S{p.dim}" if p.is_shard() else
+                     "P" if p.is_partial() else "R" for p in x.placements])
 
 
 def _save(out_dir: str, name: str, **arrays) -> None:
@@ -103,7 +113,7 @@ def case_collectives(rank: int, d: str) -> None:
 
 # --------------------------------------------------------- sharded steps
 def _sharded_step(rank, d, case, arch, shape, names, microbatches,
-                  gather_once=False):
+                  gather_once=False, key=None):
     import dataclasses
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor.experimental import implicit_replication
@@ -114,11 +124,12 @@ def _sharded_step(rank, d, case, arch, shape, names, microbatches,
     from repro_torch.train.trainer import (_loss_and_grads, batch_shardings,
                                            place, train_shardings)
 
+    key = key or arch
     with open(os.path.join(d, "overrides.json")) as f:
         cfg = dataclasses.replace(TC.reduced(TC.get(arch)),
-                                  **json.load(f).get(arch, {}))
-    inp = np.load(os.path.join(d, f"in_{arch}.npz"))
-    params = _tree(np.load(os.path.join(d, f"w_{arch}.npz")))
+                                  **json.load(f).get(key, {}))
+    inp = np.load(os.path.join(d, f"in_{key}.npz"))
+    params = _tree(np.load(os.path.join(d, f"w_{key}.npz")))
     batch = {"inputs": torch.from_numpy(inp["inputs"]),
              "labels": torch.from_numpy(inp["labels"])}
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
@@ -175,6 +186,84 @@ def case_step_ssm(rank, d):
 def case_step_hybrid(rank, d):
     _sharded_step(rank, d, "step_hybrid", "zamba2-7b", (2, 2),
                   ("data", "model"), 1)
+
+
+# ------------------------------------------- query heads split on a mesh
+def case_head_split(rank, d):
+    """For each entry of ``head_split.json`` (key -> [arch, data, model],
+    written by tests/test_torch_head_split.py): a sharded step, and where
+    its attention output lies — this rank's block of the query heads."""
+    import dataclasses
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    import repro_torch.configs as TC
+    from repro_torch.dist.sharding import logical, set_mesh
+    from repro_torch.models import layers
+    from repro_torch.train.trainer import place
+
+    with open(os.path.join(d, "head_split.json")) as f:
+        cases = json.load(f)
+    for key, (arch, *shape) in cases.items():
+        shape = tuple(shape)
+        _sharded_step(rank, d, key, arch, shape, ("data", "model"), 1,
+                      key=key)
+        with open(os.path.join(d, "overrides.json")) as f:
+            cfg = dataclasses.replace(TC.reduced(TC.get(arch)),
+                                      **json.load(f)[key])
+        params = _tree(np.load(os.path.join(d, f"w_{key}.npz")))
+        inp = np.load(os.path.join(d, f"in_{key}.npz"))
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        set_mesh(mesh)
+        p_attn = {k: v[0] for k, v in params["layers"]["attn"].items()}
+        axes = layers.attention_param_axes()
+        sh = {k: logical(*axes[k], dims=v.shape) for k, v in p_attn.items()}
+        dp = place(p_attn, sh, mesh)
+        b, s = inp["inputs"].shape
+        xs = np.random.default_rng(0).standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
+        x = distribute_tensor(torch.from_numpy(xs), mesh, logical(
+            "batch", "seq", "embed", dims=xs.shape))
+        pos = torch.arange(s)[None].expand(b, s)
+        with implicit_replication():
+            q, k, v = layers._qkv(dp, x, cfg, pos)
+            out = layers._per_shard(lambda q, k, v: q, q, k, v)
+        _save(d, f"{key}_heads_r{rank}",
+              q=_placements(q), out=_placements(out),
+              local=np.array(out.to_local().shape))
+        set_mesh(None)
+
+
+def case_shard_grad(rank, d):
+    """``shard``'s backward: the gradient leaving a site is in the
+    annotated placement, whether or not the value needed a move."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.dist.sharding import set_mesh, shard
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    set_mesh(mesh)
+    model = mesh.get_coordinate()[1]
+    out = {}
+    for name, start in (("placed", (Shard(0), Replicate())),
+                        ("moved", (Replicate(), Replicate()))):
+        x0 = distribute_tensor(torch.arange(32.0).reshape(4, 8), mesh,
+                               start).requires_grad_(True)
+        x = x0 * 1.0
+        seen = []
+        x.register_hook(lambda g: seen.append(g))
+        y = shard(x, "batch", "embed")
+        # each model rank holds its share of y's gradient: a partial sum
+        local = y.to_local(grad_placements=(Shard(0), Partial()))
+        (local * (model + 1.0)).sum().backward()
+        (g,) = seen
+        out[f"{name}/y"] = _placements(y)
+        out[f"{name}/grad"] = _placements(g)
+        out[f"{name}/value"] = g.full_tensor().numpy()
+    set_mesh(None)
+    _save(d, f"shard_grad_r{rank}", **out)
 
 
 # ------------------------------------------------------------ sync modes
@@ -300,13 +389,13 @@ CASES = [case_collectives, case_pipeline, case_sync, case_step_qwen3,
          case_step_hybrid, case_decode]
 
 
-def _rank(rank: int, world: int, d: str) -> None:
+def _rank(rank: int, world: int, d: str, cases: list) -> None:
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(d, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world)
     try:
-        for case in CASES:
+        for case in cases:
             case(rank, d)
             dist.barrier()
     finally:
@@ -320,7 +409,9 @@ def _rank(rank: int, world: int, d: str) -> None:
 def main() -> None:
     import torch.multiprocessing as mp
     d, world, timeout = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
-    ctx = mp.start_processes(_rank, args=(world, d), nprocs=world,
+    cases = CASES if len(sys.argv) < 5 else [
+        globals()[f"case_{name}"] for name in sys.argv[4].split(",")]
+    ctx = mp.start_processes(_rank, args=(world, d, cases), nprocs=world,
                              join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:

@@ -113,6 +113,24 @@ non-zero and print no result):
                 2 x data 2 in the three explicit sync modes against the
                 single-card step, and the GPipe ring on pipe 4 against the
                 layers in sequence.
+ 15. mesh serving — (run after phase 13, before phase 14) the engine on
+                a mesh, one NCCL rank per card, spawned with a
+                ``FileStore`` and a timeout on the join.  With four cards:
+                ``python3 -m repro_torch.launch.serve --devices 4 --mesh
+                1x4 --arch qwen3-32b`` at full width and depth with
+                phase 12's traffic (every request finishes, the prefix
+                store hits, no bytes copied, ``config.mesh`` is "1x4",
+                the captured decode's collectives are NCCL kernels;
+                tokens/s, TTFT and TPOT, decode ticks and the placement's
+                peak a card); glm4-9b on data 2 x model 2 and zamba2-7b on
+                data 1 x model 4, float32 compute, 4 requests at rate 0,
+                8 greedy tokens each, against the same on one card: equal
+                tokens, the first decode tick's logits within
+                ``MESH_LOGIT_RTOL``; the phase within 300 s.  With one
+                card: glm4-9b on a (1, 1) mesh (DTensor weights and
+                pools, the engine's clock and plan messages on a world-1
+                group) against the plain engine.  No trace kernel may
+                launch.
  14. static   — (run last, in a child process: phase 13 ran real process
                 groups) the static half: ``repro_torch.launch.lint``'s
                 smoke grid with fake CUDA tensors must exit 0 green and 1
@@ -131,7 +149,7 @@ non-zero and print no result):
                 two-tier KV cache against the dense one (equal tokens).
                 No trace kernel may launch.
 
-Every time and memory size of phases 9-14 is printed beside the card's
+Every time and memory size of phases 9-15 is printed beside the card's
 name and power limit.  Then one JSON line of kernels, the card's name and
 power limit, and the result line.  Launch counts are reset just before
 each path runs and read just after; the comparisons of phases 4 and 6 run
@@ -2022,8 +2040,6 @@ def phase_dist() -> dict:
     path, summed over the ranks."""
     import shutil
     import tempfile
-    import torch.multiprocessing as mp
-    from torch.multiprocessing.spawn import ProcessException
     global CARD
     if not CARD:
         CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2041,24 +2057,8 @@ def phase_dist() -> dict:
         print(f"dist: {world} NCCL rank(s), one per card; free disk "
               f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB at the "
               f"checkpoint directory", flush=True)
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(_dist_rank, args=(world, tmp),
-                                 nprocs=world, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + DIST_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=max(1.0,
-                                           deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    fail(f"dist: ranks still running after "
-                         f"{DIST_TIMEOUT_S} s")
-        except ProcessException as e:
-            fail(f"dist: a rank failed: {e}")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-        secs = time.perf_counter() - t0
+        secs = _spawn_ranks(_dist_rank, world, (tmp,), DIST_TIMEOUT_S,
+                            "dist")
         res = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -2182,6 +2182,274 @@ def _dist_report_four(res) -> None:
           f"{p['s'] * 1e3:.1f} ms; on {CARD}", flush=True)
     if p["fwd_err"] >= PIPE_ATOL or p["grad_err"] >= PIPE_ATOL:
         fail("dist: the pipeline differs from the sequential layers")
+
+
+# ----------------------------------------------------------------- phase 15
+MESH_TIMEOUT_S = 480            # one spawn of phase 15, its join included
+MESH_BUDGET_S = 300             # the phase on four cards
+#: the first decode tick's logits on a mesh against one card, largest
+#: |difference| over largest |logit|: float32 compute, whose partial
+#: sums fall on other ranks in another order (2**-24 a rounding, summed
+#: over d_model and d_ff terms); a lost head or a wrong block moves them
+#: by far more
+MESH_LOGIT_RTOL = 1e-4
+#: the comparison runs: these prompt lengths at rate 0, greedy
+MESH_PROMPTS = (9, 17, 5, 30)
+MESH_NEW = 8
+
+
+def _mesh_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in MESH_PROMPTS]
+
+
+def _mesh_engine_run(cfg, params) -> dict:
+    """The comparison trace through ``ServeEngine`` (on a mesh where one
+    is registered): its greedy tokens and its first decode tick's logits
+    (gathered whole)."""
+    from torch.distributed.tensor import DTensor
+    eng = ServeEngine(cfg, params, max_seq=64, max_slots=len(MESH_PROMPTS),
+                      prefix_block=8)
+    first = []
+    real = eng._decode
+
+    def decode(*a):
+        logits, cache = real(*a)
+        if not first:
+            whole = logits.full_tensor() if isinstance(logits, DTensor) \
+                else logits
+            first.append(whole.float().cpu().numpy())
+        return logits, cache
+    eng._decode = decode
+    rids = [eng.submit(p, SamplingParams(max_new_tokens=MESH_NEW))
+            for p in _mesh_prompts(cfg.vocab_size)]
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    return {"tokens": [out[r].tolist() for r in rids], "logits": first[0],
+            "s": time.perf_counter() - t0, "ticks": eng.ticks,
+            "paged": eng.paged}
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, arch: str,
+               shape: tuple) -> None:
+    """One NCCL rank of ``arch`` (float32 compute) on data x model
+    ``shape``: weights placed leaf by leaf, the comparison trace."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.launch import train as tl
+    from repro_torch.train.trainer import serve_shardings
+    # a store of its own: a FileStore keeps the last group's keys
+    tl.init_rank(rank, world, os.path.join(tmp, f"store_{arch}"), "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mesh = init_device_mesh("cuda", shape,
+                                mesh_dim_names=("data", "model"))
+        set_mesh(mesh)
+        cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p_sh = serve_shardings(mesh, cfg, len(MESH_PROMPTS), 64)[0]
+        params = init_params(cfg, SEED, f"cuda:{rank}", shardings=p_sh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        ops.reset_launches()
+        res = _mesh_engine_run(cfg, params)
+        res.update(launches=dict(ops.launches), init_s=init_s,
+                   init_peak_gb=init_peak,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if rank == 0:
+            np.save(os.path.join(tmp, f"{arch}_logits.npy"),
+                    res["logits"])
+        del res["logits"]
+        with open(os.path.join(tmp, f"{arch}_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        set_mesh(None)
+        torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(fn, world: int, args: tuple, timeout: float,
+                 what: str) -> float:
+    """``fn(rank, world, *args)`` on ``world`` spawned ranks, joined
+    within ``timeout`` (a rank still running then is killed and the
+    script fails); returns the seconds they took."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                fail(f"{what}: ranks still running after {timeout} s")
+    except ProcessException as e:
+        fail(f"{what}: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return time.perf_counter() - t0
+
+
+def _mesh_against_one_card(arch: str, shape: tuple, tmp: str) -> dict:
+    """``arch`` in float32 compute on the mesh ``shape`` (one NCCL rank
+    per card) and then alone on card 0, the card freed between them:
+    tokens, the first decode tick's logits, launches and memory."""
+    world = shape[0] * shape[1]
+    free_card()
+    secs = _spawn_ranks(_mesh_rank, world, (tmp, arch, shape),
+                        MESH_TIMEOUT_S, f"mesh serving {arch}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{arch}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    mesh_logits = np.load(os.path.join(tmp, f"{arch}_logits.npy"))
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, "cuda")
+    one = _mesh_engine_run(cfg, params)
+    one_s = time.perf_counter() - t0
+    del params
+    free_card()
+    rel = float(np.abs(mesh_logits - one["logits"]).max()
+                / np.abs(one["logits"]).max())
+    return {"ranks": ranks, "secs": secs, "one": one, "one_s": one_s,
+            "rel": rel, "same_ranks": all(r["tokens"] == ranks[0]["tokens"]
+                                          for r in ranks)}
+
+
+def _mesh_line(arch: str, shape: tuple, res: dict) -> None:
+    r0, one = res["ranks"][0], res["one"]
+    same = r0["tokens"] == one["tokens"]
+    print(f"mesh serving: {arch} full width and depth, float32 compute, "
+          f"{'paged' if r0['paged'] else 'slot'} pool, "
+          f"{len(MESH_PROMPTS)} requests at rate 0, {MESH_NEW} greedy "
+          f"tokens each, on data {shape[0]} x model {shape[1]} (one NCCL "
+          f"rank per card) against one card: tokens equal {same} (every "
+          f"rank the same: {res['same_ranks']}); first decode tick's "
+          f"largest |logit difference| / largest |logit| "
+          f"{res['rel']:.3e} (limit {MESH_LOGIT_RTOL:g}); mesh serve "
+          f"{r0['s']:.2f} s in {r0['ticks']} ticks, placement "
+          f"{r0['init_s']:.2f} s at peak "
+          f"{[round(r['init_peak_gb'], 2) for r in res['ranks']]} GB a "
+          f"card, peak over the run "
+          f"{[round(r['peak_gb'], 2) for r in res['ranks']]} GB; one card "
+          f"serve {one['s']:.2f} s ({res['one_s']:.2f} s with its init); "
+          f"the ranks' spawn {res['secs']:.1f} s; on {CARD}", flush=True)
+    if not same or not res["same_ranks"]:
+        fail(f"mesh serving {arch}: tokens differ from one card's")
+    if not res["rel"] <= MESH_LOGIT_RTOL:
+        fail(f"mesh serving {arch}: logits differ by {res['rel']:.3e}")
+
+
+def _mesh_launcher(tmp: str) -> dict:
+    """``python3 -m repro_torch.launch.serve --devices 4 --mesh 1x4 --arch
+    qwen3-32b`` with the example's traffic, at full width and depth."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "qwen3-32b.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--devices", "4", "--mesh", "1x4", "--arch",
+                        "qwen3-32b", *SERVE_EXAMPLE, "--json", path],
+                       cwd=here, env=env, capture_output=True, text=True,
+                       timeout=MESH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if line.startswith("[serve]"):
+            print(f"mesh serving qwen3-32b launcher: {line[:400]}",
+                  flush=True)
+    if r.returncode != 0:
+        print(r.stderr[-4000:], flush=True)
+        fail(f"mesh serving: the qwen3-32b launcher exited {r.returncode}")
+    with open(path) as f:
+        return {"out": json.load(f), "s": secs}
+
+
+def phase_mesh_serving() -> dict:
+    """Phase 15: the engine on a mesh.  Four cards: qwen3-32b through the
+    launcher on data 1 x model 4; glm4-9b (2 x 2) and zamba2-7b (1 x 4)
+    against one card.  One card: glm4-9b on a (1, 1) mesh against the
+    plain engine.  Returns the trace kernels' launches, summed."""
+    import tempfile
+    global CARD
+    if not CARD:
+        CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    four = torch.cuda.device_count() >= 4
+    t0 = time.perf_counter()
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if four:
+            free_card()
+            q = _mesh_launcher(tmp)
+            out = q["out"]
+            s, m = out["summary"], out["mesh"]
+            add(m["trace_kernel_launches"])
+            states = set(out["request_states"].values())
+            print(f"mesh serving: qwen3-32b full width and depth (64 "
+                  f"layers, d_model 5120, 64/8 heads; float32 weights, "
+                  f"bf16 compute) through the launcher on data 1 x model "
+                  f"4, the example's traffic: config.mesh "
+                  f"{out['config']['mesh']!r}, states {sorted(states)}; "
+                  f"wall {s['wall_s']:.3f} s, {s['generated_tokens']} "
+                  f"tokens, {s['tok_per_s']:.2f} tok/s, TTFT p50 "
+                  f"{s['ttft_s']['p50'] * 1e3:.1f} p90 "
+                  f"{s['ttft_s']['p90'] * 1e3:.1f} ms, TPOT p50 "
+                  f"{s['tpot_s']['p50'] * 1e3:.2f} p90 "
+                  f"{s['tpot_s']['p90'] * 1e3:.2f} ms, "
+                  f"{s['decode_steps']} decode ticks, warm-up "
+                  f"{s['compile_s']:.2f} s, prefix hit rate "
+                  f"{s['prefix_hit_rate']:.3f}, duplicate_copy_bytes "
+                  f"{s['pool']['duplicate_copy_bytes']}; placement peak "
+                  f"{m['init_peak_gb']} GB a card; captured decode's "
+                  f"collectives {m['decode_collectives']}; the command "
+                  f"{q['s']:.1f} s; on {CARD}", flush=True)
+            if states != {"finished"} or out["config"]["mesh"] != "1x4":
+                fail(f"mesh serving qwen3-32b: states {states}, mesh "
+                     f"{out['config']['mesh']!r}")
+            if not s["prefix_hit_rate"] > 0 or \
+                    s["pool"]["duplicate_copy_bytes"] != 0:
+                fail("mesh serving qwen3-32b: no prefix hit, or bytes "
+                     "copied")
+            if not any("nccl" in n.lower() for n in m["decode_collectives"]):
+                fail(f"mesh serving qwen3-32b: the captured decode names "
+                     f"no NCCL kernel: {m['decode_collectives']}")
+            for arch, shape in (("glm4-9b", (2, 2)), ("zamba2-7b", (1, 4))):
+                res = _mesh_against_one_card(arch, shape, tmp)
+                for r in res["ranks"]:
+                    add(r["launches"])
+                _mesh_line(arch, shape, res)
+        else:
+            res = _mesh_against_one_card("glm4-9b", (1, 1), tmp)
+            for r in res["ranks"]:
+                add(r["launches"])
+            _mesh_line("glm4-9b", (1, 1), res)
+            print(f"mesh serving: this machine has "
+                  f"{torch.cuda.device_count()} card(s): the four-card "
+                  f"parts (qwen3-32b through the launcher on 1 x 4, "
+                  f"glm4-9b on 2 x 2 and zamba2-7b on 1 x 4 against one "
+                  f"card) were not run", flush=True)
+    secs = time.perf_counter() - t0
+    print(f"mesh serving: phase 15 took {secs:.1f} s; trace kernel "
+          f"launches over the ranks {launches}; on {CARD}", flush=True)
+    if any(launches.values()):
+        fail(f"mesh serving: a trace kernel launched: {launches}")
+    if four and secs > MESH_BUDGET_S:
+        fail(f"mesh serving: phase 15 took {secs:.1f} s, over "
+             f"{MESH_BUDGET_S} s")
+    return launches
 
 
 # ----------------------------------------------------------------- phase 14
@@ -2542,6 +2810,7 @@ def main() -> None:
     profiler_probe("after the captures")
     phase_serving()
     dist_launches = phase_dist()
+    phase_mesh_serving()
     phase_static()
     for row in kernels:
         row["launches_dist"] = dist_launches.get(row["name"], 0)

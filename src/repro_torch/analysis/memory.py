@@ -2,9 +2,9 @@
 
 ``peak-memory`` runs a liveness analysis over the step trace — each
 storage is live from the record that first defines it to the last record
-that uses it, the step's arguments for the whole step, its results to the
-end — and checks the resulting peak against the per-device HBM budget the
-roofline model uses.  This is the static half of the OOM gate: it prices
+that uses it, the step's arguments for the whole step, its results and
+the gradients a train step holds to the end — and checks the resulting
+peak against the per-device HBM budget the roofline model uses.  This is the static half of the OOM gate: it prices
 a config *before* it burns hardware time.
 
 ``host-sync`` flags forced device↔host round trips inside the step
@@ -23,9 +23,25 @@ from .base import AnalysisPass, register_pass
 STACKING_LOOPS = ("layers",)
 
 
+def _held_grads(trace) -> set:
+    """The gradients a train step holds until it returns (its gradient
+    tree is a local of the step while the update runs): storages the
+    backward defines in an argument's shape that a record after the
+    backward reads."""
+    bwd = [i for i, r in enumerate(trace.records) if r.backward]
+    if not bwd:
+        return set()
+    shapes = {tuple(shape) for _dtype, shape, _s in trace.arg_leaves}
+    grads = {s for i in bwd for s, shape in zip(trace.records[i].out_ids,
+                                                 trace.records[i].out_shapes)
+             if tuple(shape) in shapes}
+    return grads & {s for r in trace.records[bwd[-1] + 1:] for s in r.in_ids}
+
+
 def _liveness(trace) -> dict:
     """storage id -> (first record, last record) of the transient
-    storages, with the step's results live to the end."""
+    storages, with the step's results and held gradients live to the
+    end."""
     first: dict = {}
     last: dict = {}
     end = len(trace.records)
@@ -35,7 +51,7 @@ def _liveness(trace) -> dict:
                 continue
             first.setdefault(s, i)
             last[s] = i
-    for s in trace.outputs:
+    for s in (*trace.outputs, *_held_grads(trace)):
         if s in first:
             last[s] = end
     return {s: (first[s], last[s]) for s in first}

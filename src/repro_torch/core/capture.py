@@ -149,6 +149,30 @@ def _bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def indexed_write_bytes(name: str, args) -> tuple | None:
+    """``(in, out)`` bytes of an in-place indexed write (``index_put_``,
+    ``index_copy_``; the ``put`` plan's scatter): the values and indices
+    it reads and the bytes it writes, not its whole destination, as the
+    reference counts its ``dynamic-update-slice``.  ``None`` for any
+    other operator."""
+    if name == "aten::index_put_":
+        dst, indices, values = args[0], args[1], args[2]
+        idx = [i for i in indices if i is not None]
+        if any(i.dtype == torch.bool for i in idx):
+            return None                     # a mask: its count is data
+        n = 1
+        for d in torch.broadcast_shapes(*(i.shape for i in idx)):
+            n *= d
+        for d, size in enumerate(dst.shape):
+            if d >= len(indices) or indices[d] is None:
+                n *= size
+        return _bytes((idx, values)), n * dst.element_size()
+    if name == "aten::index_copy_":
+        dst, index, source = args[0], args[2], args[3]
+        return _bytes((index, source)), source.numel() * dst.element_size()
+    return None
+
+
 class _OpRecorder(TorchDispatchMode):
     """Records every aten call (bytes, view-ness, pointwise-ness); with
     ``tag`` set, wraps each in a profiler range named after its index."""
@@ -167,9 +191,11 @@ class _OpRecorder(TorchDispatchMode):
         else:
             out = func(*args, **kwargs)
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        in_b, out_b = indexed_write_bytes(func._schema.name, args) or (
+            _bytes((args, kwargs)), _bytes(outs))
         self.ops.append(OpRecord(
-            name=func._schema.name, in_bytes=_bytes((args, kwargs)),
-            out_bytes=_bytes(outs), is_view=func.is_view,
+            name=func._schema.name, in_bytes=in_b,
+            out_bytes=out_b, is_view=func.is_view,
             pointwise=torch.Tag.pointwise in func.tags,
             out_numel=sum(t.numel() for t in outs)))
         return out

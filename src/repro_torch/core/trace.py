@@ -42,7 +42,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
-from .capture import CaptureStats, collective_wire_bytes
+from .capture import (CaptureStats, collective_wire_bytes,
+                      indexed_write_bytes)
 
 #: dispatched collectives -> the reference's opcode: DTensor's
 #: redistributions (functional collectives; a shard-to-shard move on a
@@ -506,6 +507,7 @@ class _Recorder(TorchDispatchMode):
                 and srcs and srcs[0].device.type != "cpu" \
                 and outs[0].device.type == "cpu":
             sync = "d2h"
+        written = indexed_write_bytes(schema.name, args)
         rec = TraceRecord(
             op=str(func), name=schema.name,
             in_shapes=tuple(tuple(t.shape) for t in srcs),
@@ -513,9 +515,11 @@ class _Recorder(TorchDispatchMode):
             out_shapes=tuple(tuple(t.shape) for t in outs),
             out_dtypes=tuple(hlo_dtype(t.dtype) for t in outs),
             in_ids=in_ids, out_ids=out_ids,
-            in_bytes=sum(t.numel() * t.element_size()
-                         for t in (srcs if opcode else ins)),
-            out_bytes=sum(t.numel() * t.element_size() for t in outs),
+            in_bytes=written[0] if written else sum(
+                t.numel() * t.element_size()
+                for t in (srcs if opcode else ins)),
+            out_bytes=written[1] if written else sum(
+                t.numel() * t.element_size() for t in outs),
             flops=flops, is_view=func.is_view,
             pointwise=torch.Tag.pointwise in func.tags,
             out_numel=sum(t.numel() for t in outs),

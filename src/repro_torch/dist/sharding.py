@@ -194,6 +194,52 @@ def logical(*axes, dims=None, rules: ShardingRules | None = None,
                       mesh)
 
 
+def block_range(shape, dim: int, mesh, placements) -> tuple:
+    """``[start, stop)`` of this rank's block of dimension ``dim`` of a
+    tensor of ``shape`` placed by ``placements`` on ``mesh``
+    (``torch.chunk``'s split, mesh dimensions in order, as DTensor cuts
+    it)."""
+    coord = mesh.get_coordinate()
+    start, size = 0, shape[dim]
+    for j, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(j))
+            off = min(coord[j] * chunk, size)
+            start, size = start + off, min(size - off, chunk)
+    return start, start + size
+
+
+def _stride(shape) -> tuple:
+    """The contiguous strides of ``shape``."""
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
+
+
+def placed(full: torch.Tensor, mesh, placements) -> DTensor:
+    """``full`` as a DTensor placed by ``placements``, from this rank's
+    block of it (a copy): every rank holds the same values, so no bytes
+    move, where ``distribute_tensor`` sends rank 0's."""
+    block = full[tuple(slice(*block_range(full.shape, d, mesh, placements))
+                       for d in range(full.dim()))]
+    if block.shape != full.shape:
+        block = block.clone()             # the whole tensor can go
+    return DTensor.from_local(block, mesh, placements,
+                              run_check=False, shape=full.shape,
+                              stride=_stride(full.shape))
+
+
+def placed_zeros(shape, mesh, placements, **kw) -> DTensor:
+    """A zero DTensor of ``shape`` placed by ``placements``: each rank
+    allocates its block alone (``kw``: ``dtype``, ``device``)."""
+    local = [b - a for a, b in (block_range(shape, d, mesh, placements)
+                                for d in range(len(shape)))]
+    return DTensor.from_local(torch.zeros(local, **kw), mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_stride(shape))
+
+
 # ---------------------------------------------------------------------------
 # Static-analysis intent model (consumed by the implicit-reshard pass)
 # ---------------------------------------------------------------------------
@@ -418,9 +464,6 @@ def einsum(equation: str, *operands):
     for o, spec in zip(ops, ins):
         sizes.update(zip(spec, o.shape))
     shape = torch.Size(sizes[c] for c in out)
-    stride = [1] * len(shape)
-    for i in range(len(shape) - 2, -1, -1):
-        stride[i] = stride[i + 1] * shape[i + 1]
     local = torch.einsum(equation, *(
         o.redistribute(mesh, t).to_local(grad_placements=g)
         for o, t, g in zip(ops, targets, grads)))
@@ -428,7 +471,7 @@ def einsum(equation: str, *operands):
     # view
     return DTensor.from_local(local.contiguous(), mesh, out_pl,
                               run_check=False, shape=shape,
-                              stride=tuple(stride))
+                              stride=_stride(shape))
 
 
 def take_rows(table, ids):
@@ -450,8 +493,5 @@ def take_rows(table, ids):
     local = table.redistribute(mesh, rep).to_local(grad_placements=grad)[
         ids.to_local()]
     shape = torch.Size((*ids.shape, *table.shape[1:]))
-    stride = [1] * len(shape)
-    for i in range(len(shape) - 2, -1, -1):
-        stride[i] = stride[i + 1] * shape[i + 1]
     return DTensor.from_local(local, mesh, ids.placements, run_check=False,
-                              shape=shape, stride=tuple(stride))
+                              shape=shape, stride=_stride(shape))

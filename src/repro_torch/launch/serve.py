@@ -22,9 +22,22 @@ writes the materialized trace and ``--trace-file in.jsonl`` replays one.
 ``--deadline-s`` stamps a hard per-request deadline onto every request.
 
 ``--json <path>`` writes the structured results in the reference launcher's
-one-dict-per-run contract. ``--devices``/``--mesh`` wait for the port of
-distribution, and ``--compile-cache`` (XLA's persistent compilation cache)
-has no PyTorch counterpart: each raises if given a non-default value.
+one-dict-per-run contract.  ``--compile-cache`` (XLA's persistent
+compilation cache) has no PyTorch counterpart and raises if given.
+
+On a mesh, ``--devices N --mesh DxM`` (data × model, D·M = N) spawns N
+ranks, one per card (a ``FileStore`` in a temporary directory; NCCL on
+``cuda``, gloo only with ``--device cpu``), the counterpart of the
+reference's forced host devices.  Each rank places the weights leaf by
+leaf (``init_params(shardings=)``), builds the mesh engine and serves the
+same trace; the engine agrees its clock and plan over the ranks
+(``serve.engine.MeshSync``), and the launcher's arrival check is one of
+its sync points.  Rank 0 alone prints and writes ``--json``.  Every rank
+captures the decode (the captured call holds collectives); rank 0's
+reports are the run's.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --devices 4 --mesh 2x2 --reduced
 """
 
 from __future__ import annotations
@@ -32,10 +45,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
+
+from repro_torch.launch.train import _say, init_rank
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -123,11 +141,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the warm-up dispatches before the trace")
     ap.add_argument("--devices", type=int, default=0,
-                    help="not yet: waits for distribution (raises if "
-                         "given)")
+                    help="ranks to spawn, one per card (0: this process "
+                         "alone, the plain engine)")
     ap.add_argument("--mesh", default="1x1",
-                    help="not yet: waits for distribution (raises if "
-                         "given)")
+                    help="DxM data×model mesh; D·M must equal --devices")
     ap.add_argument("--pasta-tools", default="serving,kernel_freq")
     ap.add_argument("--request-tools", default="serving")
     ap.add_argument("--json", default=None, metavar="PATH",
@@ -140,13 +157,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The reference launcher's flags plus ``--device``; refuses the ones
-    with no counterpart yet."""
+    """The reference launcher's flags plus ``--device``; refuses the one
+    with no counterpart."""
     args = _parser().parse_args(argv)
-    if args.devices or args.mesh != "1x1":
-        raise NotImplementedError(
-            "--devices/--mesh: multi-device serving waits for the port of "
-            "distribution (ROADMAP queue 1, item 7)")
     if args.compile_cache is not None:
         raise NotImplementedError(
             "--compile-cache: XLA's persistent compilation cache has no "
@@ -156,6 +169,18 @@ def parse_args(argv=None) -> argparse.Namespace:
               "--num-requests/--max-slots", file=sys.stderr)
         args.num_requests = args.batch
     return args
+
+
+def mesh_dims(args) -> tuple:
+    """``--mesh DxM`` as (D, M), checked against ``--devices``: D·M ranks,
+    or one process alone without ``--devices``."""
+    dims = tuple(int(x) for x in args.mesh.split("x"))
+    if len(dims) != 2 or min(dims) < 1:
+        raise ValueError(f"--mesh {args.mesh!r}: DxM (data x model)")
+    if math.prod(dims) != max(args.devices, 1):
+        raise ValueError(f"--mesh {args.mesh} has {math.prod(dims)} "
+                         f"devices for --devices {args.devices}")
+    return dims
 
 
 def make_trace(args, vocab: int):
@@ -221,15 +246,54 @@ def _clone_tree(tree):
 
 def run(args, params=None) -> dict:
     """Serve one trace as the reference launcher does and return its JSON
-    result (the ``--json`` contract), plus ``engine`` and ``reports``.
-    ``params``: the model's weights, when the caller already holds them
-    (else ``init_params(cfg, args.seed, args.device)``)."""
+    result (the ``--json`` contract), plus ``engine``, ``reports`` and
+    the captured decode's ``capture`` rollup.  ``params``: the model's
+    weights, when the caller already holds them (else
+    ``init_params(cfg, args.seed, args.device)``).
+
+    With ``--devices N`` this is one rank of an initialized N-rank process
+    group: it builds the data × model mesh, places the weights and serves
+    on it (``params`` must then be None)."""
+    import torch
+    import torch.distributed as dist
+
+    dims = mesh_dims(args)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if args.devices and world != args.devices:
+        raise ValueError(f"--devices {args.devices}: this is one rank of "
+                         f"{world or 'no'} process group; run the launcher "
+                         f"(main), which spawns the ranks")
+    if args.devices and params is not None:
+        raise ValueError("on a mesh every rank places its own weights")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: torch.cuda.is_available() is "
+                           "false (pass --device cpu to serve on the CPU)")
+    from repro_torch.dist.sharding import set_mesh
+    mesh = None
+    if args.devices:
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh(args.device, dims,
+                                mesh_dim_names=("data", "model"))
+    set_mesh(mesh)
+    try:
+        return _serve(args, params, mesh)
+    finally:
+        set_mesh(None)
+
+
+def _serve(args, params, mesh) -> dict:
+    import torch
+    import torch.distributed as dist
+
     import repro_torch.configs as configs
     import repro_torch.core as pasta
     from repro_torch.models import init_params
     from repro_torch.serve import (SamplingParams, ServeEngine, SLOSpec,
                                    traffic)
 
+    device = args.device
+    if mesh is not None and device == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
@@ -237,8 +301,8 @@ def run(args, params=None) -> dict:
     trace_meta = {"seed": args.seed}
     if args.trace_file:
         trace, trace_meta = traffic.load_trace(args.trace_file)
-        print(f"[serve] replaying {len(trace)} requests from "
-              f"{args.trace_file} (meta={trace_meta})")
+        _say(f"[serve] replaying {len(trace)} requests from "
+             f"{args.trace_file} (meta={trace_meta})")
     elif args.traffic:
         trace = traffic.PRESETS[args.traffic](vocab, seed=args.seed)
     else:
@@ -247,7 +311,7 @@ def run(args, params=None) -> dict:
                                       max_new_tokens=args.max_new_tokens,
                                       slo=None)
                  for a, p in zip(arrivals, prompts)]
-    if args.save_trace:
+    if args.save_trace and (mesh is None or dist.get_rank() == 0):
         traffic.save_trace(args.save_trace, trace, seed=args.seed,
                            meta={"preset": args.traffic,
                                  "arch": args.arch})
@@ -265,9 +329,13 @@ def run(args, params=None) -> dict:
         max_seq = args.shared_prefix + args.prompt_len + args.max_new_tokens
 
     with pasta.Session(tools=args.pasta_tools, name="serve",
-                       torch_device=args.device) as session:
-        if params is None:
-            params = init_params(cfg, args.seed, args.device)
+                       torch_device=device) as session:
+        init_peaks = None
+        if mesh is not None:
+            params, init_peaks = _placed_params(cfg, args, device, mesh,
+                                                max_seq)
+        elif params is None:
+            params = init_params(cfg, args.seed, device)
         paged = False if args.no_paged else None   # None = family default
         draft_cfg = None
         if args.draft_arch is not None:
@@ -289,23 +357,31 @@ def run(args, params=None) -> dict:
                              rng_seed=args.seed,
                              faults=args.chaos, fault_seed=args.chaos_seed)
         if args.chaos:
-            print(f"[serve] chaos armed: preset={args.chaos} "
-                  f"seed={args.chaos_seed} "
-                  f"({len(engine.faults.specs)} fault specs)")
+            _say(f"[serve] chaos armed: preset={args.chaos} "
+                 f"seed={args.chaos_seed} "
+                 f"({len(engine.faults.specs)} fault specs)")
         compile_s = 0.0
         if not args.no_warmup:
             # the steady-state dispatches run once BEFORE the trace clock
             # starts, so TTFT/TPOT percentiles measure serving latency
             wu = engine.warmup(prompt_lens=[len(t.prompt) for t in trace])
             compile_s = wu["compile_s"]
-            print(f"[serve] warmup: {len(wu['warmed'])} shapes run in "
-                  f"{compile_s:.2f}s (excluded from the trace clock)")
-        t0 = time.perf_counter()
+            _say(f"[serve] warmup: {len(wu['warmed'])} shapes run in "
+                 f"{compile_s:.2f}s (excluded from the trace clock)")
+        # the arrival check reads the engine's clock (rank 0's on a mesh,
+        # where it is a sync point that also holds the loop's state equal)
+        t_wall = time.perf_counter()
+        t0 = engine.sync.clock()
         pending = [(t.arrival_s, t) for t in trace]
         rids = []
         outputs = {}            # collected at retirement (pruning-safe)
-        while pending or engine.has_work:
-            now = time.perf_counter() - t0
+        while True:
+            now = engine.sync.agree(
+                engine.ticks, "arrival check",
+                {"pending": len(pending), "working": engine.has_work},
+                clock=True) - t0
+            if not (pending or engine.has_work):
+                break
             while pending and pending[0][0] <= now:
                 t = pending.pop(0)[1]
                 rids.append(engine.submit(
@@ -318,44 +394,62 @@ def run(args, params=None) -> dict:
                     outputs[rid] = list(engine.requests[rid].tokens)
             elif pending:
                 time.sleep(min(pending[0][0] - now, 0.05))
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t_wall
         n_tok = sum(len(t) for t in outputs.values())
-        print(f"[serve] {len(rids)} requests, {n_tok} tokens in {dt:.2f}s "
-              f"({n_tok / dt:.1f} tok/s), max_slots={args.max_slots}, "
-              f"policy={args.policy}, rate={args.rate or 'inf'}")
+        _say(f"[serve] {len(rids)} requests, {n_tok} tokens in {dt:.2f}s "
+             f"({n_tok / dt:.1f} tok/s), max_slots={args.max_slots}, "
+             f"policy={args.policy}, rate={args.rate or 'inf'}")
         if engine.preemptions:
-            print(f"[serve] preemptions={engine.preemptions} "
-                  f"parked_blocks={engine.parked_blocks} "
-                  f"recovered_blocks={engine.recovered_blocks} "
-                  f"(zero-recompute resume)")
+            _say(f"[serve] preemptions={engine.preemptions} "
+                 f"parked_blocks={engine.parked_blocks} "
+                 f"recovered_blocks={engine.recovered_blocks} "
+                 f"(zero-recompute resume)")
         if engine.spec_k:
             acc = (engine.accepted_tokens / engine.drafted_tokens
                    if engine.drafted_tokens else 0.0)
-            print(f"[serve] speculative k={engine.spec_k} "
-                  f"({args.draft}): {engine.accepted_tokens}/"
-                  f"{engine.drafted_tokens} drafts accepted "
-                  f"({acc:.2f}), {engine.decode_steps} verify ticks")
+            _say(f"[serve] speculative k={engine.spec_k} "
+                 f"({args.draft}): {engine.accepted_tokens}/"
+                 f"{engine.drafted_tokens} drafts accepted "
+                 f"({acc:.2f}), {engine.decode_steps} verify ticks")
         health = engine.health()
         if args.chaos or args.deadline_s is not None:
-            print(f"[serve] health: faults={health['fault_ticks']} "
-                  f"retries={health['request_retries']} "
-                  f"failed={health['failed']} "
-                  f"timeouts={health['timeouts']} "
-                  f"isolated={health['isolated_innocents']} "
-                  f"degraded_ticks={health['degraded_ticks']}")
+            _say(f"[serve] health: faults={health['fault_ticks']} "
+                 f"retries={health['request_retries']} "
+                 f"failed={health['failed']} "
+                 f"timeouts={health['timeouts']} "
+                 f"isolated={health['isolated_innocents']} "
+                 f"degraded_ticks={health['degraded_ticks']}")
         done_rids = [r for r in rids if r in outputs]
         if done_rids:
-            print(f"[serve] sample: {outputs[done_rids[0]][:12]}")
+            _say(f"[serve] sample: {outputs[done_rids[0]][:12]}")
         else:
-            print("[serve] sample: <no finished requests>")
+            _say("[serve] sample: <no finished requests>")
         # fleet kernel_freq sees the fused decode's device kernels; a
-        # failure here propagates (the reference prints and carries on)
-        capture_decode(engine, session)
+        # failure here propagates (the reference prints and carries on).
+        # On a mesh every rank captures: the call holds collectives
+        captured = capture_decode(engine, session)
         reports = session.reports()
 
     serving = reports["serving"].data if "serving" in reports else {}
     for name, rep in reports.items():
-        print(f"  {name}: {_short(rep.data)}")
+        _say(f"  {name}: {_short(rep.data)}")
+    mesh_out = None
+    if mesh is not None:
+        from repro_torch.kernels import ops
+        nccl = {}
+        for inst in captured.collective_instances:
+            nccl[inst["name"]] = nccl.get(inst["name"], 0) + 1
+        launches = [None] * dist.get_world_size()
+        dist.all_gather_object(launches, dict(ops.launches))
+        mesh_out = {"shape": list(mesh.shape), "init_peak_gb": init_peaks,
+                    "decode_collectives": nccl,
+                    "trace_kernel_launches": {
+                        k: sum(r.get(k, 0) for r in launches)
+                        for k in launches[0]}}
+        _say(f"[serve] captured decode on the mesh: collectives {nccl} "
+             f"(COLLECTIVE events; kernel_freq counts the kernel "
+             f"launches); trace-kernel launches over the ranks "
+             f"{mesh_out['trace_kernel_launches']}")
     per_request = []
     for req_reports in engine.request_reports:
         for name, rep in req_reports.items():
@@ -431,16 +525,77 @@ def run(args, params=None) -> dict:
         "request_states": {int(rid): engine.requests[rid].state.value
                            for rid in rids if rid in engine.requests},
     }
-    return {"result": out, "engine": engine, "reports": reports}
+    if mesh_out is not None:
+        out["mesh"] = mesh_out
+    return {"result": out, "engine": engine, "reports": reports,
+            "capture": captured}
+
+
+def _placed_params(cfg, args, device, mesh, max_seq) -> tuple:
+    """The weights placed leaf by leaf on every rank, and each card's
+    peak device memory over the placement (GB; None on the CPU)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import init_params
+    from repro_torch.train.trainer import serve_shardings
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p_sh = serve_shardings(mesh, cfg, args.max_slots, max_seq)[0]
+    params = init_params(cfg, args.seed, device, shardings=p_sh)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    _say(f"[serve] weights placed leaf by leaf on data {mesh.shape[0]} x "
+         f"model {mesh.shape[1]} in {time.perf_counter() - t0:.2f}s; peak "
+         f"device memory per card over the placement "
+         f"{[None if p is None else round(p, 2) for p in peaks]} GB")
+    return params, peaks
+
+
+def _write_json(args, out: dict) -> None:
+    with open(args.json, "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    print(f"[serve] wrote {args.json}")
+
+
+def _rank_main(rank: int, world: int, store_path: str, argv) -> None:
+    import torch.distributed as dist
+
+    args = parse_args(argv)
+    init_rank(rank, world, store_path, args.device)
+    try:
+        out = run(args)["result"]
+        if rank == 0 and args.json:
+            _write_json(args, out)
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    mesh_dims(args)
+    if args.devices:
+        import torch
+        import torch.multiprocessing as mp
+        if args.device == "cuda" and torch.cuda.device_count() < \
+                args.devices:
+            raise RuntimeError(
+                f"--devices {args.devices}: the machine has "
+                f"{torch.cuda.device_count()} cards (one rank per card)")
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.spawn(_rank_main, args=(args.devices,
+                                       os.path.join(tmp, "store"),
+                                       argv if argv is not None
+                                       else sys.argv[1:]),
+                     nprocs=args.devices, join=True)
+        return 0
     out = run(args)["result"]
     if args.json:
-        with open(args.json, "w") as f:
-            json.dump(out, f, indent=1, default=str)
-        print(f"[serve] wrote {args.json}")
+        _write_json(args, out)
     return 0
 
 

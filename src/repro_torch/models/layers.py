@@ -35,7 +35,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.instrument import op_hook
-from repro_torch.dist.sharding import einsum, shard
+from repro_torch.dist.sharding import block_range, einsum, shard
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -122,31 +122,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ----------------------------------------------------------------- attention
-def normal_init(lead: tuple, gen: torch.Generator, dtype, device):
-    """``normal(shape, scale)``: N(0, scale²) weights of shape
-    ``(*lead, *shape)``."""
-    def normal(shape, scale):
-        return torch.randn((*lead, *shape), generator=gen, dtype=dtype,
-                           device=device).mul_(scale)
+def kept(key: str, leaf: torch.Tensor) -> torch.Tensor:
+    """The ``place`` of the ``init_*`` functions that keeps each weight
+    as it was made."""
+    return leaf
+
+
+def normal_init(lead: tuple, gen: torch.Generator, dtype, device,
+                place=kept):
+    """``normal(key, shape, scale)``: N(0, scale²) weights of shape
+    ``(*lead, *shape)``, each handed to ``place(key, weight)`` as soon as
+    it is drawn."""
+    def normal(key, shape, scale):
+        return place(key, torch.randn((*lead, *shape), generator=gen,
+                                      dtype=dtype, device=device)
+                     .mul_(scale))
     return normal
 
 
 def init_attention(cfg: ModelConfig, lead: tuple, gen: torch.Generator,
-                   dtype, device) -> dict:
+                   dtype, device, place=kept) -> dict:
     """Attention weights with leading axes ``lead`` (``(n_layers,)`` for a
-    stack, ``()`` for one block)."""
+    stack, ``()`` for one block), each handed to ``place(key, weight)``
+    as it is made."""
     d, hd = cfg.d_model, cfg.head_dim
-    normal = normal_init(lead, gen, dtype, device)
+    normal = normal_init(lead, gen, dtype, device, place)
     s = 1.0 / math.sqrt(d)
     p = {
-        "wq": normal((d, cfg.n_heads, hd), s),
-        "wk": normal((d, cfg.n_kv_heads, hd), s),
-        "wv": normal((d, cfg.n_kv_heads, hd), s),
-        "wo": normal((cfg.n_heads, hd, d), 1.0 / math.sqrt(cfg.q_dim)),
+        "wq": normal("wq", (d, cfg.n_heads, hd), s),
+        "wk": normal("wk", (d, cfg.n_kv_heads, hd), s),
+        "wv": normal("wv", (d, cfg.n_kv_heads, hd), s),
+        "wo": normal("wo", (cfg.n_heads, hd, d), 1.0 / math.sqrt(cfg.q_dim)),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros((*lead, hd), dtype=dtype, device=device)
-        p["k_norm"] = torch.zeros((*lead, hd), dtype=dtype, device=device)
+        for key in ("q_norm", "k_norm"):
+            p[key] = place(key, torch.zeros((*lead, hd), dtype=dtype,
+                                            device=device))
     return p
 
 
@@ -340,14 +351,7 @@ def _block(x: DTensor, dim: int) -> tuple:
     """``[start, stop)`` of this rank's block of ``x``'s dimension ``dim``
     (``torch.chunk``'s split, mesh dimensions in order, as DTensor cuts
     it)."""
-    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
-    start, size = 0, x.shape[dim]
-    for j, p in enumerate(x.placements):
-        if p.is_shard(dim):
-            chunk = -(-size // mesh.size(j))
-            off = min(coord[j] * chunk, size)
-            start, size = start + off, min(size - off, chunk)
-    return start, start + size
+    return block_range(x.shape, dim, x.device_mesh, x.placements)
 
 
 def put_sharded(cache, vals, base, s: int) -> None:
@@ -428,19 +432,63 @@ def _per_shard(fn, q, k, v):
     each query head gets its own KV head (a group of one).  Where K/V are
     replicated over a dimension that splits the query heads, each rank's
     K/V gradient is its heads' share: a partial sum there."""
-    mesh = q.device_mesh
-    group = q.shape[2] // k.shape[2]
-    a, b = _block(q, 2)
-    k0, _ = _block(k, 2)
-    lo, hi = a // group - k0, (b - 1) // group + 1 - k0
     grads = [Partial() if pq.is_shard(2) and not pk.is_shard(2) else pk
              for pq, pk in zip(q.placements, k.placements)]
-    kl = k.to_local(grad_placements=grads)[:, :, lo:hi]
-    vl = v.to_local(grad_placements=grads)[:, :, lo:hi]
-    if (a % group or (b - a) % group) and hi - lo > 1:
-        idx = torch.arange(a, b, device=kl.device) // group - a // group
-        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    kl, vl = _kv_heads(q, k.to_local(grad_placements=grads),
+                       v.to_local(grad_placements=grads), _block(k, 2)[0],
+                       k.shape[2])
     out = fn(q.to_local(), kl, vl)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
+
+
+def _kv_heads(q, k, v, k0: int, n_kv: int) -> tuple:
+    """The KV heads the query heads ``[a, b)`` of this rank's block of
+    ``q`` read, from ``k`` and ``v`` (B, T, heads, D) that hold KV heads
+    ``k0`` onwards of ``n_kv``: heads ``[a // G, (b - 1) // G + 1)``,
+    grouped where the query heads are whole groups or lie in one group,
+    indexed per head otherwise (a group of one)."""
+    group = q.shape[2] // n_kv
+    a, b = _block(q, 2)
+    lo, hi = a // group - k0, (b - 1) // group + 1 - k0
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if (a % group or (b - a) % group) and hi - lo > 1:
+        idx = torch.arange(a, b, device=k.device) // group - a // group
+        k, v = k[:, :, idx], v[:, :, idx]
+    return k, v
+
+
+def _paged_per_shard(q, k, v, cache: dict, cfg: ModelConfig):
+    """The paged append and attention on this rank's blocks: ``cache``
+    holds this rank's block of the pool (all rows and blocks, KV heads
+    ``cache["heads"]``).  The tick's new K/V rows are gathered over the
+    dimensions that split the batch, where the pool is replicated, so
+    every replica writes every row; the softmax then reads this rank's
+    rows of the batch, on the KV heads its query heads use, as
+    :func:`_per_shard` does for prefill."""
+    mesh = q.device_mesh
+    pk, pv, bt, base = cache["pk"], cache["pv"], cache["bt"], cache["length"]
+    s = q.shape[1]
+    rows = [p if p.is_shard(2) else Replicate() for p in k.placements]
+    kl = k.redistribute(mesh, rows).to_local()
+    vl = v.redistribute(mesh, rows).to_local()
+    if kl.shape[2] != pk.shape[2]:
+        raise ValueError(f"this rank's {kl.shape[2]} new KV heads are not "
+                         f"the pool's block of {pk.shape[2]}")
+    plan = cache.get("plan") or paged_plan(bt, base, s, pk.shape[0],
+                                           pk.shape[1])
+    put(pk.view(-1, *pk.shape[2:]), plan["write"], kl.flatten(0, 1))
+    put(pv.view(-1, *pv.shape[2:]), plan["write"], vl.flatten(0, 1))
+    r0, r1 = _block(q, 0)
+    t = bt.shape[1] * pk.shape[1]
+    gather = plan["gather"][r0:r1]
+    kc = pk[gather].reshape(r1 - r0, t, *pk.shape[2:])
+    vc = pv[gather].reshape(r1 - r0, t, *pv.shape[2:])
+    kc, vc = _kv_heads(q, kc, vc, cache["heads"][0], cfg.n_kv_heads)
+    ql = q.to_local()
+    b0 = base[r0:r1]
+    out = _sdpa_decode(_group(ql, kc.shape[2]), kc, vc, b0 + s,
+                       base=b0 if s > 1 else None)
     return DTensor.from_local(out, mesh, q.placements, run_check=False)
 
 
@@ -494,6 +542,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
         out = out.reshape(out.shape[0], out.shape[1], -1, out.shape[-1])
         new_cache = {"k": cache["k"], "v": cache["v"], "rk": rk, "rv": rv,
                      "length": lengths, "main_len": main_len}
+    elif "pk" in cache and cache.get("heads") is not None:
+        out = _paged_per_shard(q, k, v, cache, cfg)
+        new_cache = {"pk": cache["pk"], "pv": cache["pv"], "bt": cache["bt"],
+                     "length": cache["length"] + s}
     elif "pk" in cache:
         # paged decode/append: new K/V scatter through each row's block
         # table at base..base+S-1; the softmax gathers the row's window
@@ -545,14 +597,15 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 # ----------------------------------------------------------------------- mlp
 def init_mlp(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
-             device) -> dict:
-    """GLU MLP weights with leading axes ``lead``."""
+             device, place=kept) -> dict:
+    """GLU MLP weights with leading axes ``lead``, each handed to
+    ``place(key, weight)`` as it is drawn."""
     d, f = cfg.d_model, cfg.d_ff
-    normal = normal_init(lead, gen, dtype, device)
+    normal = normal_init(lead, gen, dtype, device, place)
     return {
-        "w_gate": normal((d, f), 1.0 / math.sqrt(d)),
-        "w_up": normal((d, f), 1.0 / math.sqrt(d)),
-        "w_down": normal((f, d), 1.0 / math.sqrt(f)),
+        "w_gate": normal("w_gate", (d, f), 1.0 / math.sqrt(d)),
+        "w_up": normal("w_up", (d, f), 1.0 / math.sqrt(d)),
+        "w_down": normal("w_down", (f, d), 1.0 / math.sqrt(f)),
     }
 
 

@@ -32,7 +32,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import trace
 from repro_torch.core.instrument import capturing, op_hook
-from repro_torch.dist.sharding import einsum, shard, take_rows
+from repro_torch.dist.sharding import (einsum, get_mesh, placed, shard,
+                                       take_rows)
 from .config import ModelConfig
 from . import layers as L
 from . import mamba2 as M
@@ -52,50 +53,87 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{', '.join(FRONTENDS)}")
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                shardings: dict | None = None) -> dict:
     """Random parameters from ``seed`` (``torch.Generator`` on ``device``),
-    laid out as the reference's ``init_params`` lays them out."""
+    laid out as the reference's ``init_params`` lays them out.
+
+    ``shardings``: a tree of DTensor placements on the registered mesh
+    (``train.trainer.serve_shardings`` gives one).  Each leaf is placed as
+    soon as it is made, this rank keeping its block of it: every rank
+    draws the same values in the same order, so no bytes move, the values
+    are the one-device ``init_params``'s, and a rank holds its placed
+    blocks and at most one whole leaf."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg.param_dtype)
     # the meta device (shapes only) has no generator: draw from the CPU's
     meta = torch.device(device).type == "meta"
     gen = torch.Generator(device="cpu" if meta else device).manual_seed(seed)
+    mesh = get_mesh()
+    if shardings is not None and mesh is None:
+        raise ValueError("init_params(shardings=) needs a registered mesh")
+
+    def at(*path):
+        """The ``place`` of the subtree at ``path``."""
+        if shardings is None:
+            return L.kept
+        node = shardings
+        for key in path:
+            node = node[key]
+        return lambda key, leaf: placed(leaf, mesh, node[key])
+
     n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    top = at()
     p: dict = {}
     if cfg.frontend == "none":
-        p["embed"] = torch.randn((v, d), generator=gen, dtype=dt,
-                                 device=device).mul_(0.02)
+        p["embed"] = top("embed", torch.randn(
+            (v, d), generator=gen, dtype=dt, device=device).mul_(0.02))
     if not cfg.tie_embeddings and v:
-        p["lm_head"] = torch.randn((d, v), generator=gen, dtype=dt,
-                                   device=device).mul_(1.0 / math.sqrt(d))
-    p["final_norm"] = torch.zeros((d,), dtype=dt, device=device)
+        p["lm_head"] = top("lm_head", torch.randn(
+            (d, v), generator=gen, dtype=dt,
+            device=device).mul_(1.0 / math.sqrt(d)))
+    p["final_norm"] = top("final_norm",
+                          torch.zeros((d,), dtype=dt, device=device))
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    def mamba_stack(lead):
-        return {"ln": zeros(*lead, d),
-                "mamba": M.init_mamba2(cfg, lead, gen, dt, device)}
+    def mamba_stack(lead, *path):
+        return {"ln": at(*path)("ln", zeros(*lead, d)),
+                "mamba": M.init_mamba2(cfg, lead, gen, dt, device,
+                                       at(*path, "mamba"))}
+
+    def attn_block(lead, *path):
+        put = at(*path)
+        return {"attn": L.init_attention(cfg, lead, gen, dt, device,
+                                         at(*path, "attn")),
+                "ln1": put("ln1", zeros(*lead, d)),
+                "ln2": put("ln2", zeros(*lead, d))}
 
     if cfg.family in ATTN_FAMILIES:
-        p["layers"] = {"attn": L.init_attention(cfg, (n,), gen, dt, device),
-                       "ln1": zeros(n, d), "ln2": zeros(n, d)}
+        p["layers"] = attn_block((n,), "layers")
         if cfg.family == "moe":
-            p["layers"]["moe"] = MOE.init_moe(cfg, (n,), gen, dt, device)
+            p["layers"]["moe"] = MOE.init_moe(cfg, (n,), gen, dt, device,
+                                              at("layers", "moe"))
         else:
-            p["layers"]["mlp"] = L.init_mlp(cfg, (n,), gen, dt, device)
+            p["layers"]["mlp"] = L.init_mlp(cfg, (n,), gen, dt, device,
+                                            at("layers", "mlp"))
     elif cfg.family == "ssm":
-        p["layers"] = mamba_stack((n,))
+        p["layers"] = mamba_stack((n,), "layers")
     else:
         every = cfg.shared_attn_every
         n_groups = n // every
         tail = n - n_groups * every
-        p["groups"] = mamba_stack((n_groups, every))
+        p["groups"] = mamba_stack((n_groups, every), "groups")
         if tail:
-            p["tail"] = mamba_stack((tail,))
-        p["shared"] = {"ln1": zeros(d), "ln2": zeros(d),
-                       "attn": L.init_attention(cfg, (), gen, dt, device),
-                       "mlp": L.init_mlp(cfg, (), gen, dt, device)}
+            p["tail"] = mamba_stack((tail,), "tail")
+        put = at("shared")
+        p["shared"] = {"ln1": put("ln1", zeros(d)),
+                       "ln2": put("ln2", zeros(d)),
+                       "attn": L.init_attention(cfg, (), gen, dt, device,
+                                                at("shared", "attn")),
+                       "mlp": L.init_mlp(cfg, (), gen, dt, device,
+                                         at("shared", "mlp"))}
     return p
 
 
@@ -269,8 +307,10 @@ def _kv_plan(kv: dict, s: int):
     """The write plan (and paged gather table) every layer of one forward
     shares: built once per forward, not once per layer.  The two-tier
     cache writes its recent buffer at one offset and needs none, and a
-    sharded (DTensor) cache plans each rank's block itself."""
-    if "rk" in kv or isinstance(kv.get("k", kv.get("pk")), DTensor):
+    sharded (DTensor) slot cache plans each rank's block itself.  A
+    placed paged pool keeps every row on every rank (its blocks split
+    only the KV heads), so its plan is the plain one."""
+    if "rk" in kv or isinstance(kv.get("k"), DTensor):
         return None
     if "pk" in kv:
         return L.paged_plan(kv["bt"], kv["length"], s, kv["pk"].shape[1],
@@ -337,7 +377,7 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
         idx = logits_index.long()
         if idx.dim() == 1:
             idx = idx[:, None]
-        h = torch.gather(h, 1, idx[..., None].expand(-1, -1, h.shape[-1]))
+        h = _take_positions(h, idx)
     if cfg.tie_embeddings and "embed" in params:
         logits = einsum("bsd,vd->bsv", h, params["embed"].to(dt))
     elif "lm_head" in params:
@@ -347,6 +387,22 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
     logits = shard(logits, "batch", "seq", "vocab")
     op_hook("lm_head", (h,), (logits,))
     return logits, new_cache
+
+
+def _take_positions(h, idx):
+    """``h[b, idx[b, p]]`` (B, P, d); on a DTensor, each rank gathers its
+    own rows: DTensor's rule for the gather differs between torch
+    releases."""
+    if not isinstance(h, DTensor):
+        return torch.gather(h, 1, idx[..., None].expand(-1, -1, h.shape[-1]))
+    mesh = h.device_mesh
+    h = h.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                              for p in h.placements])
+    r0, r1 = L._block(h, 0)
+    local = h.to_local()
+    out = torch.gather(local, 1, idx[r0:r1, :, None].expand(
+        -1, -1, local.shape[-1]))
+    return DTensor.from_local(out, mesh, h.placements, run_check=False)
 
 
 def _run_stacked_attn(params, h, cfg, positions, cache=None,
@@ -370,10 +426,16 @@ def _run_stacked_attn(params, h, cfg, positions, cache=None,
     kv = cache["kv"]
     plan = _kv_plan(kv, s)
     paged = "pk" in kv
+    if paged:
+        # a placed pool: each rank's block of KV heads, written in place
+        heads = L._block(kv["pk"], 3) if isinstance(kv["pk"], DTensor) \
+            else None
+        pk, pv = ((kv["pk"].to_local(), kv["pv"].to_local()) if heads
+                  else (kv["pk"], kv["pv"]))
     for i in trace.loop("layers", n):
         if paged:
-            kv_i = {"pk": kv["pk"][i], "pv": kv["pv"][i], "bt": kv["bt"],
-                    "length": kv["length"], "plan": plan}
+            kv_i = {"pk": pk[i], "pv": pv[i], "bt": kv["bt"],
+                    "length": kv["length"], "plan": plan, "heads": heads}
         else:
             kv_i = _kv_layer(kv, i, plan)
         h, _kv, _aux = _attn_block(_tree_at(layers, i), h, cfg, positions,

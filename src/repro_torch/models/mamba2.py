@@ -21,37 +21,40 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.instrument import op_hook
 from repro_torch.dist.sharding import einsum, shard
 from .config import ModelConfig
-from .layers import _silu, normal_init, rmsnorm
+from .layers import _silu, kept, normal_init, rmsnorm
 
 
 def init_mamba2(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
-                device) -> dict:
-    """Mamba2 weights with leading axes ``lead``; ``A_log``, ``dt_bias`` and
+                device, place=kept) -> dict:
+    """Mamba2 weights with leading axes ``lead``, each handed to
+    ``place(key, weight)`` as it is made; ``A_log``, ``dt_bias`` and
     ``D`` are float32 whatever ``dtype`` is."""
     d, di = cfg.d_model, cfg.d_inner
     g, ds, nh, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_conv_width
-    normal = normal_init(lead, gen, dtype, device)
+    normal = normal_init(lead, gen, dtype, device, place)
     s = 1.0 / math.sqrt(d)
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "w_z": normal((d, di), s),
-        "w_x": normal((d, di), s),
-        "w_B": normal((d, g * ds), s),
-        "w_C": normal((d, g * ds), s),
-        "w_dt": normal((d, nh), s),
-        "conv_x": normal((w, di), 0.1),
-        "conv_B": normal((w, g * ds), 0.1),
-        "conv_C": normal((w, g * ds), 0.1),
-        "A_log": torch.zeros((*lead, nh), **f32),
-        "dt_bias": torch.full((*lead, nh), -2.0, **f32),
-        "D": torch.ones((*lead, nh), **f32),
-        "norm": torch.zeros((*lead, di), dtype=dtype, device=device),
-        "w_out": normal((di, d), 1.0 / math.sqrt(di)),
+        "w_z": normal("w_z", (d, di), s),
+        "w_x": normal("w_x", (d, di), s),
+        "w_B": normal("w_B", (d, g * ds), s),
+        "w_C": normal("w_C", (d, g * ds), s),
+        "w_dt": normal("w_dt", (d, nh), s),
+        "conv_x": normal("conv_x", (w, di), 0.1),
+        "conv_B": normal("conv_B", (w, g * ds), 0.1),
+        "conv_C": normal("conv_C", (w, g * ds), 0.1),
+        "A_log": place("A_log", torch.zeros((*lead, nh), **f32)),
+        "dt_bias": place("dt_bias", torch.full((*lead, nh), -2.0, **f32)),
+        "D": place("D", torch.ones((*lead, nh), **f32)),
+        "norm": place("norm", torch.zeros((*lead, di), dtype=dtype,
+                                          device=device)),
+        "w_out": normal("w_out", (di, d), 1.0 / math.sqrt(di)),
     }
 
 
@@ -91,6 +94,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
             for i in range(width))
     return _silu(y), xp[:, -(width - 1):, :]
+
+
+def _pad_steps(a: torch.Tensor, pad: int) -> torch.Tensor:
+    """``a`` (b, s, ...) with ``pad`` zero steps appended to ``s``.  A
+    DTensor pads each rank's block (the step dimension is never split):
+    DTensor's rule for the pad breaks in some torch releases."""
+    widths = (0, 0) * (a.dim() - 2) + (0, pad)
+    if not isinstance(a, DTensor):
+        return F.pad(a, widths)
+    if any(p.is_shard(1) for p in a.placements):
+        raise ValueError("the step dimension of a scan input is split")
+    return DTensor.from_local(F.pad(a.to_local(), widths), a.device_mesh,
+                              a.placements, run_check=False)
 
 
 def _segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -220,10 +236,9 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
         if pad:
             # pad with dt=0 steps: decay exp(0)=1 and zero input, so the
             # final state is exact; padded outputs are sliced off.
-            zpad = lambda a: F.pad(a, (0, 0) * (a.dim() - 2)     # noqa: E731
-                                   + (0, pad))
-            y, ssm = ssd_chunked(zpad(xh), zpad(dt_act), A, zpad(Bh),
-                                 zpad(Ch), chunk)
+            y, ssm = ssd_chunked(*(_pad_steps(a, pad) for a in (xh, dt_act)),
+                                 A, *(_pad_steps(a, pad) for a in (Bh, Ch)),
+                                 chunk)
             y = y[:, :s]
         else:
             y, ssm = ssd_chunked(xh, dt_act, A, Bh, Ch, chunk)

@@ -28,27 +28,29 @@ from torch.distributed.tensor import DTensor
 from repro_torch.core.instrument import op_hook
 from repro_torch.dist.sharding import einsum, mesh_axis_size, shard
 from .config import ModelConfig
-from .layers import _silu, normal_init
+from .layers import _silu, kept, normal_init
 
 
 def init_moe(cfg: ModelConfig, lead: tuple, gen: torch.Generator, dtype,
-             device) -> dict:
-    """MoE weights with leading axes ``lead``; the router is float32
+             device, place=kept) -> dict:
+    """MoE weights with leading axes ``lead``, each handed to
+    ``place(key, weight)`` as it is drawn; the router is float32
     whatever ``dtype`` is."""
     d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
-    normal = normal_init(lead, gen, dtype, device)
+    normal = normal_init(lead, gen, dtype, device, place)
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     p = {
-        "router": normal_init(lead, gen, torch.float32, device)((d, e), s_in),
-        "w_gate": normal((e, d, f), s_in),
-        "w_up": normal((e, d, f), s_in),
-        "w_down": normal((e, f, d), s_out),
+        "router": normal_init(lead, gen, torch.float32, device, place)(
+            "router", (d, e), s_in),
+        "w_gate": normal("w_gate", (e, d, f), s_in),
+        "w_up": normal("w_up", (e, d, f), s_in),
+        "w_down": normal("w_down", (e, f, d), s_out),
     }
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
-        p["ws_gate"] = normal((d, fs), s_in)
-        p["ws_up"] = normal((d, fs), s_in)
-        p["ws_down"] = normal((fs, d), s_out)
+        p["ws_gate"] = normal("ws_gate", (d, fs), s_in)
+        p["ws_up"] = normal("ws_up", (d, fs), s_in)
+        p["ws_down"] = normal("ws_down", (fs, d), s_out)
     return p
 
 

@@ -34,6 +34,15 @@ those families always prefill cold (hit rate 0 by construction).
 Device tensors are written in place where the reference donates them to
 ``jax.jit``; host-side tables and lengths reach the device through
 :func:`to_device`, which does not wait for the card.
+
+On a mesh (``mesh=``) the pools are DTensors and each rank allocates and
+writes its block alone; the host state (allocator, block tables,
+refcounts, the prefix store) is the same on every rank.  The slot pool
+is placed by the rule table over ``cache_axes`` (rows over ``data``, the
+KV sequence and the SSM heads over ``model``); the paged pool splits
+only its KV heads over ``model``, where they divide it, and keeps every
+block on every ``data`` rank, since one block can serve rows of both
+halves through the prefix store.
 """
 
 from __future__ import annotations
@@ -42,10 +51,14 @@ import collections
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
-from repro_torch.models import init_cache
+from repro_torch.dist.sharding import (block_range, logical, placed,
+                                       placed_zeros)
+from repro_torch.models import cache_axes, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
+from repro_torch.train.optimizer import tree_map
 
 #: marker in the slot-axis spec tree for per-slot int leaves ("length")
 #: whose pool value is overridden with the request's true length (a
@@ -91,6 +104,22 @@ def slot_axes(cache: dict) -> dict:
 
 def _slot_put(pool_leaf, src_leaf, ax, slot: int, row: int,
               length: int) -> None:
+    if isinstance(src_leaf, DTensor):
+        src_leaf = src_leaf.full_tensor()          # one request's cache
+    if isinstance(pool_leaf, DTensor):
+        # this rank's block: the slot's row where it holds it, and its
+        # window of every other dimension
+        blocks = [block_range(pool_leaf.shape, d, pool_leaf.device_mesh,
+                              pool_leaf.placements)
+                  for d in range(pool_leaf.dim())]
+        r0, r1 = blocks[0 if ax == LENGTH else ax]
+        pool_leaf = pool_leaf.to_local()
+        if not r0 <= slot < r1:
+            return
+        slot -= r0
+        if ax != LENGTH:
+            src_leaf = src_leaf[tuple(slice(a, b) if d != ax else slice(None)
+                                      for d, (a, b) in enumerate(blocks))]
     if ax == LENGTH:
         pool_leaf[slot] = length
         return
@@ -149,17 +178,49 @@ def pad_cache_to(cache: dict, cfg: ModelConfig, max_seq: int) -> dict:
     return cache
 
 
+def _conform(x, mesh, target):
+    """``x`` in the ``target`` placements: a DTensor redistributed (a
+    partial sum reduced), a plain tensor (every rank's same values) cut
+    to this rank's block."""
+    if not isinstance(x, DTensor):
+        return placed(x, mesh, target)
+    if tuple(x.placements) != tuple(target):
+        return x.redistribute(mesh, target)
+    return x
+
+
+def _slot_window(leaf: DTensor, slot: int, upto: int) -> torch.Tensor:
+    """``leaf[:, slot, :upto]`` of a placed (layers, slots, seq, ...) KV
+    leaf, whole on every rank: the rank holding each block of it once
+    (coordinate 0 where the leaf is replicated) contributes it, the others
+    zeros, summed over the mesh.  One request's K/V, never the pool."""
+    mesh, pl = leaf.device_mesh, leaf.placements
+    (r0, r1), (t0, t1) = (block_range(leaf.shape, d, mesh, pl)
+                          for d in (1, 2))
+    local = leaf.to_local()
+    out = local.new_zeros((leaf.shape[0], upto, *leaf.shape[3:]))
+    coord = mesh.get_coordinate()
+    owner = all(c == 0 for c, p in zip(coord, pl) if not p.is_shard())
+    stop = min(t1, upto)
+    if owner and r0 <= slot < r1 and t0 < stop:
+        out[:, t0:stop] = local[:, slot - r0, :stop - t0]
+    return DTensor.from_local(out, mesh, [Partial()] * mesh.ndim,
+                              run_check=False).full_tensor()
+
+
 class KVSlotPool:
     """Fixed ``(slots, max_seq)`` decode cache pool with per-slot lengths.
 
     ``cache`` is the live device tree (the tree the model's decode path
     consumes); callers reassign it after decode steps (the KV leaves are
     written in place, SSM states come back new).  ``insert`` copies an
-    admitted request's prefill row into its slot in place.
+    admitted request's prefill row into its slot in place.  On a mesh
+    the leaves are DTensors placed by the rule table over ``cache_axes``,
+    and a tree assigned to ``cache`` is put back in those placements.
     """
 
     def __init__(self, cfg: ModelConfig, slots: int, max_seq: int,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if cfg.kv_two_tier:
             raise NotImplementedError(
                 "the slotted serving pool manages raggedness itself; "
@@ -169,7 +230,30 @@ class KVSlotPool:
         self.slots = slots
         self.max_seq = max_seq
         self.device = torch.device(device)
-        self.cache = init_cache(cfg, slots, max_seq, self.device)
+        self.mesh = mesh
+        self.placements = None
+        if mesh is None:
+            self._cache = init_cache(cfg, slots, max_seq, self.device)
+        else:
+            shapes = init_cache(cfg, slots, max_seq, "meta")
+            self.placements = tree_map(
+                lambda ax, t: logical(*ax, dims=t.shape, mesh=mesh),
+                cache_axes(cfg), shapes)
+            self._cache = tree_map(
+                lambda t, pl: placed_zeros(t.shape, mesh, pl, dtype=t.dtype,
+                                           device=self.device),
+                shapes, self.placements)
+
+    @property
+    def cache(self) -> dict:
+        return self._cache
+
+    @cache.setter
+    def cache(self, tree: dict) -> None:
+        if self.mesh is not None:
+            tree = tree_map(lambda x, pl: _conform(x, self.mesh, pl), tree,
+                             self.placements)
+        self._cache = tree
 
     def insert(self, src_cache: dict, slot: int, row: int,
                length: int) -> None:
@@ -180,8 +264,10 @@ class KVSlotPool:
         """A copy of slot's K/V for the first ``upto`` positions —
         ``{"k","v"}: (n_layers, upto, n_kv_heads, head_dim)`` tensors on
         the pool's device (the reference copies to host numpy, which has
-        no bf16)."""
+        no bf16); on a mesh, whole on every rank."""
         kv = self.cache["kv"]
+        if self.mesh is not None:
+            return {n: _slot_window(kv[n], slot, upto) for n in ("k", "v")}
         return {"k": kv["k"][:, slot, :upto].clone(),
                 "v": kv["v"][:, slot, :upto].clone()}
 
@@ -189,7 +275,8 @@ class KVSlotPool:
                              batch: int = 1) -> dict:
         """A fresh single-request prefill cache (attention families only),
         optionally seeded with a stored prefix at positions ``0..L-1`` so
-        only the prompt suffix needs prefilling."""
+        only the prompt suffix needs prefilling; on a mesh, placed as the
+        pool is."""
         dt = torch_dtype(self.cfg.dtype)
         n = self.cache["kv"]["k"].shape[0]
         hkv, hd = self.cfg.n_kv_heads, self.cfg.head_dim
@@ -202,6 +289,10 @@ class KVSlotPool:
             k[:, 0, :pl] = kv_prefix["k"]
             v[:, 0, :pl] = kv_prefix["v"]
             length[0] = pl
+        if self.mesh is not None:
+            axes = cache_axes(self.cfg)["kv"]["k"]
+            at = logical(*axes, dims=shape, mesh=self.mesh)
+            k, v = placed(k, self.mesh, at), placed(v, self.mesh, at)
         return {"kv": {"k": k, "v": v,
                        "length": to_device(length, self.device)}}
 
@@ -227,7 +318,7 @@ class PagedKVPool:
 
     def __init__(self, cfg: ModelConfig, slots: int, max_seq: int,
                  block_size: int = 16, n_blocks: int | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if cfg.kv_two_tier:
             raise NotImplementedError(
                 "the paged serving pool manages raggedness itself; "
@@ -250,9 +341,18 @@ class PagedKVPool:
                          else (slots + 2) * self.blocks_per_seq)
         shape = (cfg.n_layers, self.n_blocks, block_size,
                  cfg.n_kv_heads, cfg.head_dim)
-        self.pk = torch.zeros(shape, dtype=torch_dtype(cfg.dtype),
-                              device=self.device)
-        self.pv = torch.zeros_like(self.pk)
+        dt = torch_dtype(cfg.dtype)
+        if mesh is None:
+            self.pk = torch.zeros(shape, dtype=dt, device=self.device)
+            self.pv = torch.zeros_like(self.pk)
+        else:
+            # KV heads over `model` where they divide it; every block on
+            # every `data` rank
+            at = logical(None, None, None, "kv_heads", None, dims=shape,
+                         mesh=mesh)
+            self.pk, self.pv = (placed_zeros(shape, mesh, at, dtype=dt,
+                                             device=self.device)
+                                for _ in range(2))
         self._free = list(range(self.n_blocks - 1, -1, -1))  # pop ascending
         self._refs = np.zeros((self.n_blocks,), np.int32)
         self._store_refs = np.zeros((self.n_blocks,), np.int32)
@@ -397,8 +497,10 @@ class PagedKVPool:
         if not ids:
             return
         idx = to_device(np.asarray(ids, np.int64), self.device)
-        self.pk[:, idx] = 0
-        self.pv[:, idx] = 0
+        for pool in (self.pk, self.pv):
+            if isinstance(pool, DTensor):
+                pool = pool.to_local()
+            pool[:, idx] = 0
 
     # ------------------------------------------------------ device views
     def cache_view(self, lengths: np.ndarray, rows=None) -> dict:
@@ -418,10 +520,23 @@ class PagedKVPool:
         self.pk = cache["kv"]["pk"]
         self.pv = cache["kv"]["pv"]
 
+    def local_rows(self, src_cache: dict) -> dict:
+        """A dense prefill cache's K/V as :meth:`insert_prefill` takes
+        them: on a mesh, every row (gathered over the dimensions that
+        split the batch, where the pool keeps every block) on this rank's
+        KV heads; off it, as they are."""
+        kv = src_cache["kv"]
+        if not isinstance(self.pk, DTensor):
+            return src_cache
+        return {"kv": {n: kv[n].redistribute(self.pk.device_mesh,
+                                             self.pk.placements).to_local()
+                       for n in ("k", "v")}}
+
     def insert_prefill(self, src_cache: dict, slot: int, row: int) -> None:
-        """Copy one row of a dense grouped-prefill cache into the slot's
-        blocks (cropped to the table span; positions past the prefill are
-        zeroed, as the reference pads them)."""
+        """Copy one row of a dense grouped-prefill cache (on a mesh, as
+        :meth:`local_rows` gives it) into the slot's blocks (cropped to
+        the table span; positions past the prefill are zeroed, as the
+        reference pads them)."""
         ids = self.tables[slot]
         cols = np.flatnonzero(ids < self.n_blocks)      # sentinels drop
         if not len(cols):
@@ -433,6 +548,8 @@ class PagedKVPool:
         cols_dev = to_device(cols.astype(np.int64), self.device)
         ids_dev = to_device(ids[cols].astype(np.int64), self.device)
         for pool, src in ((self.pk, kv["k"]), (self.pv, kv["v"])):
+            if isinstance(pool, DTensor):
+                pool = pool.to_local()
             sl = src[:, row, :crop]
             if crop < span:
                 sl = torch.nn.functional.pad(

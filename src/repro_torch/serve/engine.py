@@ -103,6 +103,18 @@ temperature > 0 draws from the port's own generator, keyed by the same
 ``(seed-or-(engine seed, rid), position)`` tuple: the reference's
 invariants hold, its exact draws cannot.
 
+**On a mesh** (a ``DeviceMesh`` registered with
+:func:`repro_torch.dist.sharding.set_mesh`, one rank per card) every rank
+runs this engine on its blocks: the weights are DTensors (placed by
+``init_params(shardings=)``), the pools are placed
+(:mod:`~repro_torch.serve.cache`), the dispatches run under DTensor's
+implicit replication and the logits are gathered whole to every rank, so
+every rank samples the same bits.  The host decisions are made once for
+all ranks by :class:`MeshSync`, over a gloo group of the engine's own: one
+clock, rank 0's, read at fixed points, and one plan, held equal on every
+rank before a tick's first device call and after its commits; a rank that
+would diverge makes every rank raise.
+
 ``generate(prompts)`` survives as a deprecated shim over ``submit``/``run``
 with the legacy observability contract (one child session per *call*).
 ``abort(rid)`` cancels a request at any lifecycle stage, releasing its slot,
@@ -114,20 +126,26 @@ slots or leave sessions open forever.
 
 from __future__ import annotations
 
+import collections
+import datetime
+import hashlib
 import itertools
+import struct
 import time
 import warnings
 
-import collections
-
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 import repro_torch.core as pasta
 from repro_torch.core.instrument import capturing
+from repro_torch.dist.sharding import get_mesh
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
+from repro_torch.train.trainer import _on_mesh
 from .cache import KVSlotPool, PagedKVPool, PrefixCache, bucket, to_device
 from .draft import DraftModelProposer, NgramProposer
 from .faults import FaultInjected, get_plan
@@ -152,6 +170,91 @@ _TERMINAL = frozenset((RequestState.FINISHED, RequestState.ABORTED,
 #: degradation ladder: level -> the knob that level sheds
 _DEGRADE_KNOBS = {1: "spec_decode_off", 2: "prefill_chunk_halved",
                   3: "reject_admissions"}
+
+#: how long a host message of :class:`MeshSync` waits for every rank
+SYNC_TIMEOUT_S = 600
+
+
+class HostSync:
+    """The engine's clock and plan agreement on one device: every clock
+    read is ``time.perf_counter``, and there is no other rank to agree
+    with."""
+
+    def clock(self) -> float:
+        """A reading every rank shares: a sync point."""
+        return time.perf_counter()
+
+    def now(self) -> float:
+        """The time a host decision reads."""
+        return time.perf_counter()
+
+    def agree(self, tick: int, what: str, fields: dict,
+              clock: bool = False):
+        """Hold ``fields`` equal on every rank; with ``clock``, also a
+        sync point, whose reading is returned."""
+        del tick, what, fields
+        return time.perf_counter() if clock else None
+
+
+def _digest(value) -> int:
+    """A 64-bit digest of a field's value, the same in every process."""
+    return int.from_bytes(hashlib.blake2b(repr(value).encode(),
+                                          digest_size=8).digest(),
+                          "little", signed=True)
+
+
+class MeshSync(HostSync):
+    """One clock and one plan for every rank of the mesh, over a gloo
+    group made once for the engine (a host message neither waits on the
+    card nor enters the NCCL stream).
+
+    The clock is rank 0's ``time.perf_counter``, sent at fixed points only
+    (:meth:`clock`, and :meth:`agree` with ``clock=True``): the
+    launcher's arrival check, a tick's start and a tick's end.  Between
+    them every decision read (:meth:`now`) returns the last reading, so
+    within a tick every rank decides on the tick-start time.
+    :meth:`agree` gathers a 64-bit digest of each field from every rank
+    and raises ``RuntimeError`` on every rank, naming the tick, the first
+    rank that differs from rank 0 and the field, where any differs."""
+
+    def __init__(self):
+        self.group = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+            seconds=SYNC_TIMEOUT_S))
+        self.world = dist.get_world_size(self.group)
+        self.src = dist.get_global_rank(self.group, 0)
+        self._now = self.clock()
+
+    def clock(self) -> float:
+        buf = torch.tensor([time.perf_counter()], dtype=torch.float64)
+        dist.broadcast(buf, src=self.src, group=self.group)
+        self._now = float(buf[0])
+        return self._now
+
+    def now(self) -> float:
+        return self._now
+
+    def agree(self, tick: int, what: str, fields: dict,
+              clock: bool = False):
+        names = list(fields)
+        mine = [_digest(fields[n]) for n in names]
+        if clock:
+            mine.insert(0, struct.unpack("<q", struct.pack(
+                "<d", time.perf_counter()))[0])
+        buf = torch.tensor(mine, dtype=torch.int64)
+        every = [torch.empty_like(buf) for _ in range(self.world)]
+        dist.all_gather(every, buf, group=self.group)
+        off = 1 if clock else 0
+        for r in range(1, self.world):
+            for i, name in enumerate(names):
+                if int(every[r][off + i]) != int(every[0][off + i]):
+                    raise RuntimeError(
+                        f"serving on a mesh: tick {tick}: rank {r}'s {what} "
+                        f"differs from rank 0's in {name!r}")
+        if clock:
+            self._now = struct.unpack("<d", struct.pack(
+                "<q", int(every[0][0])))[0]
+            return self._now
+        return None
 
 
 class ServeEngine:
@@ -215,7 +318,12 @@ class ServeEngine:
         then end ``failed``.  ``degrade``: enable the load-shedding ladder
         (``None`` = auto: on only when a fault plan is present, so plain
         engines never shed on compile spikes); ``slow_tick_s``: absolute
-        floor for slow-tick detection."""
+        floor for slow-tick detection.
+
+        On a registered mesh, ``params`` must be placed DTensors; the
+        pools are placed and the host decisions agreed (:class:`MeshSync`),
+        so every rank of the mesh builds its engine with the same
+        arguments, at the same time."""
         if cfg.frontend != "none":
             raise NotImplementedError(
                 "ServeEngine decodes token ids; embedding-frontend archs "
@@ -224,6 +332,20 @@ class ServeEngine:
         self.params = params
         #: every dispatch runs where the parameters lie
         self.device = _params_device(params)
+        self.mesh = get_mesh()
+        if self.mesh is not None and not all(
+                isinstance(x, DTensor) for x in _leaves(params)):
+            raise ValueError(
+                "serving on a mesh needs placed weights: "
+                "init_params(cfg, seed, device, shardings=serve_shardings("
+                "mesh, ...)[0])")
+        if self.mesh is not None and spec_decode and draft == "model":
+            raise NotImplementedError(
+                "--draft model on a mesh: the draft model would need its "
+                "own placed cache (ROADMAP queue 1); use the n-gram draft")
+        #: the engine's clock and plan agreement: on a mesh, rank 0's
+        #: clock and one plan for every rank
+        self.sync = MeshSync() if self.mesh is not None else HostSync()
         self.max_seq = max_seq
         self.session = session
         self._handler = handler
@@ -295,10 +417,11 @@ class ServeEngine:
             prefix_block = self.block_size
             self.pool = PagedKVPool(cfg, max_slots, max_seq,
                                     block_size=self.block_size,
-                                    n_blocks=n_blocks, device=self.device)
+                                    n_blocks=n_blocks, device=self.device,
+                                    mesh=self.mesh)
         else:
             self.pool = KVSlotPool(cfg, max_slots, max_seq,
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         self.prefill_chunk = None
         if prefill_chunk is not None:
             # round up to a block multiple: chunk boundaries then coincide
@@ -391,8 +514,9 @@ class ServeEngine:
     def _forward(self, params, tokens, **kw):
         """One model call, as the reference's jitted dispatches: no
         autograd, and the operator hooks silent (the reference's hooks
-        are no-ops under ``jax.jit``)."""
-        with torch.no_grad(), capturing():
+        are no-ops under ``jax.jit``); on a mesh, under DTensor's
+        implicit replication, as ``make_decode_step``'s."""
+        with torch.no_grad(), capturing(), _on_mesh():
             return forward(params, tokens, self.cfg, **kw)
 
     def _prefill_cold(self, params, tokens, last_idx):
@@ -563,7 +687,7 @@ class ServeEngine:
                 f"({params.max_new_tokens}) exceeds max_seq={self.max_seq}")
         rid = next(self._req_ids)
         req = Request(rid=rid, prompt=prompt, params=params, slo=slo,
-                      submit_time=time.perf_counter())
+                      submit_time=self.sync.now())
         attrs = {}
         if slo is not None:
             attrs = {"tenant": slo.tenant, "priority": slo.priority,
@@ -679,7 +803,7 @@ class ServeEngine:
         degradation ladder updates from the tick's pressure signals.
         """
         self.ticks += 1
-        t0 = time.perf_counter()
+        t0 = self.sync.clock()
         self._admission_blocked = False
         self._enforce_deadlines(t0)
         self._readmit_backoff(t0)
@@ -707,7 +831,11 @@ class ServeEngine:
                 # to the callers' abort-all backstop instead of spinning
                 raise
             self._recover(exc, out)
-        self._update_degradation(time.perf_counter() - t0)
+        t1 = self.sync.agree(self.ticks, "commits",
+                             {"new_tokens": tuple(out["new_tokens"]),
+                              "finished": tuple(out["finished"])},
+                             clock=True)
+        self._update_degradation(t1 - t0)
         # tick boundary marker: lets per-tick reductions (prefill-stall
         # accounting in the serving tool) close their window even on ticks
         # with no decodable slot — or on an abandoned faulty tick
@@ -718,7 +846,7 @@ class ServeEngine:
             # nothing runnable until a backoff expires: yield briefly so
             # run()/stream() drain loops don't spin the host CPU
             wake = min(r.retry_at for r in self._backoff)
-            time.sleep(min(max(wake - time.perf_counter(), 0.0), 0.02))
+            time.sleep(min(max(wake - self.sync.now(), 0.0), 0.02))
         out["active"] = self.sched.n_active
         out["queued"] = self.sched.n_queued
         out["working"] = self.has_work
@@ -731,7 +859,7 @@ class ServeEngine:
         new_tokens: list = out["new_tokens"]
         finished: list = out["finished"]
         if self.policy is not None:
-            now = time.perf_counter()
+            now = self.sync.now()
             if self.policy.preemptive and self.paged and self.sched.waiting:
                 for victim in self.policy.victims(
                         list(self.sched.waiting), dict(self.sched.running),
@@ -740,6 +868,8 @@ class ServeEngine:
             self.sched.reorder(now)
         admitted = self.sched.admit(fits=self._fits if self.paged else None)
         out["admitted"] = [r.rid for r in admitted]
+        if self.mesh is not None:
+            self._agree_plan(admitted)
         cold_group: list = []
         for req in admitted:
             # a resumed admission must re-materialize prompt + committed
@@ -816,6 +946,19 @@ class ServeEngine:
                 r = self.requests.get(rid)
                 if r is not None:
                     self.policy.note_tokens(r)
+
+    def _agree_plan(self, admitted: list) -> None:
+        """The tick's plan, held equal on every rank before its first
+        device call: the admitted requests and their slots, the queue,
+        each running row's request and length, the degradation level and
+        the pool's free blocks (free slots on the slot pool)."""
+        self.sync.agree(self.ticks, "plan", {
+            "admitted": tuple((r.rid, r.slot) for r in admitted),
+            "queued": tuple(r.rid for r in self.sched.waiting),
+            "rows": tuple((slot, r.rid, r.context_len)
+                          for slot, r in sorted(self.sched.running.items())),
+            "degrade_level": self.degrade_level,
+            "free": self.pool.n_free if self.paged else self.sched.n_free})
 
     # -------------------------------------------------------------- prefill
     def _publish(self, req: Request) -> None:
@@ -905,6 +1048,8 @@ class ServeEngine:
             logits, cache = self._prefill_cold(
                 self.params, self._dev(toks), self._dev(lens - 1))
         logits = _host(logits)
+        if self.paged:
+            cache = self.pool.local_rows(cache)
         for row, req in enumerate(reqs):
             if self.paged:
                 self.pool.insert_prefill(cache, req.slot, row)
@@ -1338,7 +1483,7 @@ class ServeEngine:
         parked losslessly first — exactly the preemption path, so resumed
         outputs stay byte-identical and zero bytes are copied."""
         self.fault_ticks += 1
-        now = time.perf_counter()
+        now = self.sync.now()
         blamed_rids = tuple(r.rid for r in blamed)
         retried, failed = [], []
         for req in blamed:
@@ -1609,5 +1754,8 @@ def _params_device(params) -> torch.device:
 def _host(logits: torch.Tensor) -> np.ndarray:
     """Logits on the host for sampling: float32 on the device first (numpy
     has no bf16; argmax order and first-index ties are unchanged).  The
-    dispatch's one wait on the card."""
+    dispatch's one wait on the card.  A DTensor's are gathered whole to
+    every rank, so every rank samples the same bits."""
+    if isinstance(logits, DTensor):
+        logits = logits.full_tensor()
     return logits.float().cpu().numpy()

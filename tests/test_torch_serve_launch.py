@@ -1,7 +1,8 @@
 """The port's serve launcher (``python -m repro_torch.launch.serve``) on the
-CPU: the reference launcher's ``--json`` contract, the flags it refuses,
-the multi-tenant, chaos and replay paths, and the fleet ``kernel_freq``
-report from one captured decode call."""
+CPU: the reference launcher's ``--json`` contract, the flag it refuses and
+the mesh flags it checks, the multi-tenant, chaos and replay paths, the
+fleet ``kernel_freq`` report from one captured decode call, and the
+launcher on four gloo ranks."""
 
 import json
 import os
@@ -68,11 +69,53 @@ def test_cli_json_has_the_reference_launchers_keys(tmp_path, monkeypatch):
     assert set(got["request_states"].values()) == {"finished"}
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--mesh", "1x2"],
-                                  ["--compile-cache", "cache"]])
+@pytest.mark.parametrize("flag", [
+    pytest.param(["--devices", "2"], id="flag0"),
+    pytest.param(["--mesh", "1x2"], id="flag1"),
+    pytest.param(["--compile-cache", "cache"], id="flag2")])
 def test_flags_without_a_counterpart_raise(flag):
-    with pytest.raises(NotImplementedError):
-        serve.parse_args(["--device", "cpu", *flag])
+    """``--compile-cache`` has no counterpart and raises.  ``--devices``
+    and ``--mesh`` are parsed (serving on a mesh), and ``run`` refuses a
+    mesh that does not cover the ranks: 1x1 for two devices, 1x2 for
+    none."""
+    if flag[0] == "--compile-cache":
+        with pytest.raises(NotImplementedError):
+            serve.parse_args(["--device", "cpu", *flag])
+        return
+    args = serve.parse_args(["--device", "cpu", *flag])
+    assert (args.devices, args.mesh) == ((2, "1x1") if flag[0] == "--devices"
+                                         else (0, "1x2"))
+    with pytest.raises(ValueError, match="--mesh"):
+        serve.run(args)
+
+
+def test_cli_on_a_two_by_two_mesh_writes_rank_zeros_json(tmp_path):
+    """Four gloo ranks on data 2 x model 2 serve the default trace: rank 0
+    alone prints and writes the JSON, with the reference's keys and
+    ``config.mesh`` as given, and its tokens are the same command's at
+    world 1."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    common = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+              "cpu", "--reduced"]
+    one = tmp_path / "one.json"
+    r = subprocess.run([*common, "--json", str(one)], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    mesh = tmp_path / "mesh.json"
+    r = subprocess.run([*common, "--devices", "4", "--mesh", "2x2",
+                        "--json", str(mesh)], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.count(f"[serve] wrote {mesh}") == 1
+    assert r.stdout.count("[serve] 8 requests, 128 tokens") == 1
+    got, want = json.loads(mesh.read_text()), json.loads(one.read_text())
+    assert got["config"]["mesh"] == "2x2"
+    assert _keys(got) - _keys(want) == {"mesh"}
+    assert _keys(want) <= _keys(got)
+    assert got["mesh"]["shape"] == [2, 2]
+    assert not any(got["mesh"]["trace_kernel_launches"].values())
+    assert got["tokens"] == want["tokens"]
+    assert set(got["request_states"].values()) == {"finished"}
 
 
 def test_traffic_priority_and_chaos_through_the_launcher(tmp_path):

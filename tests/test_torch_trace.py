@@ -8,6 +8,9 @@
 * A scaled trace — two of four layers and one of two microbatches, each
   record scaled by its trip count — is within 1% of the full trace on
   FLOPs, bytes and collective bytes, on a fake 8-rank 2×2×2 mesh.
+* An in-place cache write counts the rows it writes and the values and
+  indices it reads, not the whole cache, as the reference's
+  ``dynamic-update-slice``: the same bytes whatever ``max_seq``.
 * Each collective's group maps to the mesh axes it spans on the 2×2×2
   mesh, the pod sync's collectives are paired with their marked waits,
   and the trace refuses to run inside an initialized process group.
@@ -29,8 +32,9 @@ from repro_torch.core import events as tevents
 from repro_torch.core import session as tsession
 from repro_torch.core.trace import analyze_trace, group_axes, trace_step
 from repro_torch.dist import sharding as tsh
-from repro_torch.models import init_params
-from repro_torch.train import OptConfig, init_opt_state, make_train_step
+from repro_torch.models import init_cache, init_params
+from repro_torch.train import (OptConfig, init_opt_state, make_decode_step,
+                               make_train_step)
 from repro_torch.train.optimizer import tree_map
 from repro_torch.train.trainer import batch_shardings, train_shardings
 
@@ -72,6 +76,34 @@ def test_trace_equals_capture_of_a_real_call(arch):
         == sorted(want.kernel_meta[k]["opcode"] for k in want.kernel_counts)
     # the fake process group is gone with the trace
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("kind", ["capture", "trace"])
+def test_a_cache_write_counts_its_rows_not_the_cache(kind):
+    """One decode step's in-place K/V writes (the ``put`` plan's
+    ``index_put_``) on reduced glm4-9b: the bytes of each are its two new
+    rows written and the values and indices read, at max_seq 64 and 4096
+    alike."""
+    cfg = TC.reduced(TC.get("glm4-9b"))
+    params = init_params(cfg, 0, "cpu")
+    step = make_decode_step(cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 1)))
+    got = {}
+    for max_seq in (64, 4096):
+        cache = init_cache(cfg, 2, max_seq, "cpu")
+        if kind == "capture":
+            recs = capture.capture_step(step, params, cache, toks).ops
+        else:
+            recs = trace_step(step, params, cache, toks,
+                              device_type="cpu").records
+        got[max_seq] = [(r.in_bytes, r.out_bytes) for r in recs
+                        if r.name == "aten::index_put_"]
+    rows = 2 * cfg.n_kv_heads * cfg.head_dim * 4        # float32
+    assert len(got[64]) == 2 * cfg.n_layers
+    assert got[64] == got[4096]
+    assert all(out == rows and in_b == rows + 2 * 8
+               for in_b, out in got[64])
 
 
 def _mesh_step(arch, layers, microbatches, overlap):

@@ -131,6 +131,24 @@ non-zero and print no result):
                 pools, the engine's clock and plan messages on a world-1
                 group) against the plain engine.  No trace kernel may
                 launch.
+ 16. speculative decoding on a mesh — (run after phase 15, before phase
+                14) ``spec_decode=2`` with ``draft="model"``, one NCCL rank
+                per card.  With four cards: glm4-9b at full width and
+                depth, float32 compute, on data 2 x model 2, phase 15's
+                4 requests at rate 0, once drafting for itself and once
+                with a 2-layer draft drawn placed from seed 1, against
+                the same two on one card and the plain engine there: equal
+                greedy tokens, drafted and accepted counts equal to one
+                card's on every rank; then ``python3 -m
+                repro_torch.launch.serve --devices 4 --mesh 1x4 --arch
+                qwen3-32b`` with phase 12's flags followed by 4 requests,
+                16 greedy tokens, ``--spec-decode 2 --draft model`` (the
+                target drafts for itself): every request finishes, a
+                draft is accepted, the placement peak within 2 GB of
+                phase 15's; the phase within 240 s.  With one card:
+                glm4-9b on a (1, 1) mesh with both drafts against the
+                plain engine with the same drafts.  No trace kernel may
+                launch.
  14. static   — (run last, in a child process: phase 13 ran real process
                 groups) the static half: ``repro_torch.launch.lint``'s
                 smoke grid with fake CUDA tensors must exit 0 green and 1
@@ -149,7 +167,7 @@ non-zero and print no result):
                 two-tier KV cache against the dense one (equal tokens).
                 No trace kernel may launch.
 
-Every time and memory size of phases 9-15 is printed beside the card's
+Every time and memory size of phases 9-16 is printed beside the card's
 name and power limit.  Then one JSON line of kernels, the card's name and
 power limit, and the result line.  Launch counts are reset just before
 each path runs and read just after; the comparisons of phases 4 and 6 run
@@ -2196,6 +2214,9 @@ MESH_LOGIT_RTOL = 1e-4
 #: the comparison runs: these prompt lengths at rate 0, greedy
 MESH_PROMPTS = (9, 17, 5, 30)
 MESH_NEW = 8
+#: qwen3-32b's placement peak a card in phase 15 (max over the cards), for
+#: phase 16's check (not made when phase 15 did not run in this process)
+MESH_PEAK_GB: list = []
 
 
 def _mesh_prompts(vocab: int) -> list:
@@ -2426,6 +2447,7 @@ def phase_mesh_serving() -> dict:
             if not any("nccl" in n.lower() for n in m["decode_collectives"]):
                 fail(f"mesh serving qwen3-32b: the captured decode names "
                      f"no NCCL kernel: {m['decode_collectives']}")
+            MESH_PEAK_GB.append(max(m["init_peak_gb"]))
             for arch, shape in (("glm4-9b", (2, 2)), ("zamba2-7b", (1, 4))):
                 res = _mesh_against_one_card(arch, shape, tmp)
                 for r in res["ranks"]:
@@ -2449,6 +2471,243 @@ def phase_mesh_serving() -> dict:
     if four and secs > MESH_BUDGET_S:
         fail(f"mesh serving: phase 15 took {secs:.1f} s, over "
              f"{MESH_BUDGET_S} s")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 16
+SPEC_BUDGET_S = 240             # the phase on four cards
+SPEC_K = 2
+#: the 2 x 2 comparison's draft: the target's config cut to this depth,
+#: its weights drawn placed from the proposer's seed (1)
+SPEC_DRAFT_LAYERS = 2
+#: the draft shares the target's weights: the placement peak a card may
+#: pass phase 15's by no more than this
+SPEC_PEAK_SLACK_GB = 2.0
+#: phase 12's flags, then the speculative run's own (the later ones win)
+SPEC_ARGV = ["--num-requests", "4", "--max-new-tokens", "16",
+             "--temperature", "0", "--spec-decode", str(SPEC_K), "--draft",
+             "model"]
+
+
+def _spec_engine_run(cfg, params, draft_cfg=None) -> dict:
+    """Phase 15's comparison trace through a speculative ``ServeEngine``
+    (``draft="model"``; on a mesh where one is registered): greedy tokens
+    and the draft counts."""
+    eng = ServeEngine(cfg, params, max_seq=64, max_slots=len(MESH_PROMPTS),
+                      prefix_block=8, spec_decode=SPEC_K, draft="model",
+                      draft_cfg=draft_cfg)
+    rids = [eng.submit(p, SamplingParams(max_new_tokens=MESH_NEW))
+            for p in _mesh_prompts(cfg.vocab_size)]
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    return {"tokens": [out[r].tolist() for r in rids],
+            "drafted": eng.drafted_tokens, "accepted": eng.accepted_tokens,
+            "s": time.perf_counter() - t0, "ticks": eng.ticks}
+
+
+def _spec_runs(cfg, params) -> dict:
+    """Both drafts: the target itself, then ``SPEC_DRAFT_LAYERS`` layers."""
+    return {"self": _spec_engine_run(cfg, params),
+            "layers": _spec_engine_run(cfg, params, dataclasses.replace(
+                cfg, n_layers=SPEC_DRAFT_LAYERS))}
+
+
+def _spec_rank(rank: int, world: int, tmp: str, arch: str,
+               shape: tuple) -> None:
+    """One NCCL rank of ``arch`` (float32 compute) on data x model
+    ``shape``: weights placed leaf by leaf, the two speculative runs."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.launch import train as tl
+    from repro_torch.train.trainer import serve_shardings
+    tl.init_rank(rank, world, os.path.join(tmp, f"spec_store_{arch}"),
+                 "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mesh = init_device_mesh("cuda", shape,
+                                mesh_dim_names=("data", "model"))
+        set_mesh(mesh)
+        cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        p_sh = serve_shardings(mesh, cfg, len(MESH_PROMPTS), 64)[0]
+        params = init_params(cfg, SEED, f"cuda:{rank}", shardings=p_sh)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        ops.reset_launches()
+        res = _spec_runs(cfg, params)
+        res.update(launches=dict(ops.launches), init_peak_gb=init_peak,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        with open(os.path.join(tmp, f"spec_{arch}_rank{rank}.json"),
+                  "w") as f:
+            json.dump(res, f)
+    finally:
+        set_mesh(None)
+        torch.distributed.destroy_process_group()
+
+
+def _spec_against_one_card(arch: str, shape: tuple, tmp: str) -> dict:
+    """Both speculative runs of ``arch`` (float32 compute) on the mesh
+    ``shape`` and then on card 0 alone, with the plain engine there."""
+    world = shape[0] * shape[1]
+    free_card()
+    secs = _spawn_ranks(_spec_rank, world, (tmp, arch, shape),
+                        MESH_TIMEOUT_S, f"speculative mesh serving {arch}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"spec_{arch}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+    params = init_params(cfg, SEED, "cuda")
+    one = _spec_runs(cfg, params)
+    plain = _mesh_engine_run(cfg, params)["tokens"]
+    del params
+    free_card()
+    return {"ranks": ranks, "secs": secs, "one": one, "plain": plain}
+
+
+def _spec_line(arch: str, shape: tuple, res: dict) -> None:
+    r0, one = res["ranks"][0], res["one"]
+    for key, label in (("self", "the target drafting for itself"),
+                       ("layers", f"a {SPEC_DRAFT_LAYERS}-layer draft "
+                                  f"drawn placed from seed 1")):
+        m, o = r0[key], one[key]
+        same = m["tokens"] == o["tokens"] == res["plain"]
+        counts = (m["drafted"], m["accepted"]) == (o["drafted"],
+                                                   o["accepted"])
+        ranks = all((r[key]["tokens"], r[key]["drafted"], r[key]["accepted"])
+                    == (m["tokens"], m["drafted"], m["accepted"])
+                    for r in res["ranks"])
+        print(f"speculative mesh serving: {arch} full width and depth, "
+              f"float32 compute, k={SPEC_K}, {label}, "
+              f"{len(MESH_PROMPTS)} requests at rate 0, {MESH_NEW} greedy "
+              f"tokens each, on data {shape[0]} x model {shape[1]} (one "
+              f"NCCL rank per card) against one card: tokens equal to one "
+              f"card's and to the plain engine's {same}; accepted/drafted "
+              f"{m['accepted']}/{m['drafted']} (one card "
+              f"{o['accepted']}/{o['drafted']}); every rank the same "
+              f"{ranks}; mesh {m['s']:.2f} s in {m['ticks']} ticks, one "
+              f"card {o['s']:.2f} s in {o['ticks']} ticks; placement peak "
+              f"{[round(r['init_peak_gb'], 2) for r in res['ranks']]} GB a "
+              f"card, peak over the runs "
+              f"{[round(r['peak_gb'], 2) for r in res['ranks']]} GB; the "
+              f"ranks' spawn {res['secs']:.1f} s; on {CARD}", flush=True)
+        if not (same and counts and ranks):
+            fail(f"speculative mesh serving {arch} ({key}): tokens or "
+                 f"draft counts differ from one card's")
+
+
+def _spec_launcher(tmp: str) -> dict:
+    """qwen3-32b through the launcher on data 1 x model 4, drafting for
+    itself."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "qwen3-32b-spec.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--devices", "4", "--mesh", "1x4", "--arch",
+                        "qwen3-32b", *SERVE_EXAMPLE, *SPEC_ARGV, "--json",
+                        path], cwd=here, env=env, capture_output=True,
+                       text=True, timeout=MESH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if line.startswith("[serve]"):
+            print(f"speculative mesh serving qwen3-32b launcher: "
+                  f"{line[:400]}", flush=True)
+    if r.returncode != 0:
+        print(r.stderr[-4000:], flush=True)
+        fail(f"speculative mesh serving: the qwen3-32b launcher exited "
+             f"{r.returncode}")
+    with open(path) as f:
+        return {"out": json.load(f), "s": secs}
+
+
+def phase_spec_mesh() -> dict:
+    """Phase 16: speculative decoding with a draft model on a mesh.  Four
+    cards: glm4-9b on 2 x 2 with both drafts against one card, then
+    qwen3-32b drafting for itself through the launcher on 1 x 4.  One
+    card: glm4-9b on a (1, 1) mesh with both drafts against the plain
+    engine.  Returns the trace kernels' launches, summed."""
+    import tempfile
+    global CARD
+    if not CARD:
+        CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    four = torch.cuda.device_count() >= 4
+    t0 = time.perf_counter()
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shape = (2, 2) if four else (1, 1)
+        res = _spec_against_one_card("glm4-9b", shape, tmp)
+        for r in res["ranks"]:
+            add(r["launches"])
+        _spec_line("glm4-9b", shape, res)
+        if four:
+            free_card()
+            q = _spec_launcher(tmp)
+            out = q["out"]
+            s, m = out["summary"], out["mesh"]
+            sp = s["speculative"]
+            add(m["trace_kernel_launches"])
+            states = set(out["request_states"].values())
+            peak = max(m["init_peak_gb"])
+            ref = MESH_PEAK_GB[-1] if MESH_PEAK_GB else None
+            ref_note = (f"phase 15's {ref} GB" if ref is not None else
+                        "phase 15 did not run here: not compared")
+            print(f"speculative mesh serving: qwen3-32b full width and "
+                  f"depth (64 layers, d_model 5120, 64/8 heads; float32 "
+                  f"weights, bf16 compute) through the launcher on data 1 "
+                  f"x model 4, phase 12's flags then {' '.join(SPEC_ARGV)} "
+                  f"(the target drafts for itself): config.mesh "
+                  f"{out['config']['mesh']!r}, states {sorted(states)}; "
+                  f"wall {s['wall_s']:.3f} s, {s['generated_tokens']} "
+                  f"tokens, {s['tok_per_s']:.2f} tok/s, TTFT p50 "
+                  f"{s['ttft_s']['p50'] * 1e3:.1f} p90 "
+                  f"{s['ttft_s']['p90'] * 1e3:.1f} ms, TPOT p50 "
+                  f"{s['tpot_s']['p50'] * 1e3:.2f} p90 "
+                  f"{s['tpot_s']['p90'] * 1e3:.2f} ms, "
+                  f"{s['decode_steps']} decode ticks, accepted/drafted "
+                  f"{sp['accepted_tokens']}/{sp['drafted_tokens']}, "
+                  f"draft_overhead_s {sp['draft_overhead_s']:.3f} "
+                  f"({sp['draft_overhead_s'] / s['wall_s']:.3f} of the "
+                  f"wall); placement peak {m['init_peak_gb']} GB a card "
+                  f"({ref_note}); "
+                  f"captured verify's collectives {m['decode_collectives']}; "
+                  f"the command {q['s']:.1f} s; on {CARD}", flush=True)
+            if states != {"finished"} or out["config"]["mesh"] != "1x4":
+                fail(f"speculative mesh serving qwen3-32b: states "
+                     f"{states}, mesh {out['config']['mesh']!r}")
+            if not sp["accepted_tokens"] > 0:
+                fail("speculative mesh serving qwen3-32b: no draft "
+                     "accepted")
+            if ref is not None and peak > ref + SPEC_PEAK_SLACK_GB:
+                fail(f"speculative mesh serving qwen3-32b: placement peak "
+                     f"{peak:.2f} GB, over phase 15's {ref} GB by more "
+                     f"than {SPEC_PEAK_SLACK_GB} GB")
+        else:
+            print(f"speculative mesh serving: this machine has "
+                  f"{torch.cuda.device_count()} card(s): the four-card "
+                  f"parts (glm4-9b on 2 x 2 against one card, qwen3-32b "
+                  f"through the launcher on 1 x 4) were not run",
+                  flush=True)
+    secs = time.perf_counter() - t0
+    print(f"speculative mesh serving: phase 16 took {secs:.1f} s; trace "
+          f"kernel launches over the ranks {launches}; on {CARD}",
+          flush=True)
+    if any(launches.values()):
+        fail(f"speculative mesh serving: a trace kernel launched: "
+             f"{launches}")
+    if four and secs > SPEC_BUDGET_S:
+        fail(f"speculative mesh serving: phase 16 took {secs:.1f} s, over "
+             f"{SPEC_BUDGET_S} s")
     return launches
 
 
@@ -2811,6 +3070,7 @@ def main() -> None:
     phase_serving()
     dist_launches = phase_dist()
     phase_mesh_serving()
+    phase_spec_mesh()
     phase_static()
     for row in kernels:
         row["launches_dist"] = dist_launches.get(row["name"], 0)

@@ -77,6 +77,16 @@ def to_device(a, device) -> torch.Tensor:
     return t
 
 
+def to_host(logits: torch.Tensor) -> np.ndarray:
+    """Logits on the host for sampling: float32 on the device first (numpy
+    has no bf16; argmax order and first-index ties are unchanged).  The
+    dispatch's one wait on the card.  A DTensor's are gathered whole to
+    every rank, so every rank samples the same bits."""
+    if isinstance(logits, DTensor):
+        logits = logits.full_tensor()
+    return logits.float().cpu().numpy()
+
+
 def slot_axes(cache: dict) -> dict:
     """Tree parallel to ``cache`` giving each leaf's slot (batch) axis.
 
@@ -176,6 +186,26 @@ def pad_cache_to(cache: dict, cfg: ModelConfig, max_seq: int) -> dict:
     cache["kv"] = {"k": grow(kv["k"]), "v": grow(kv["v"]),
                    "length": kv["length"]}
     return cache
+
+
+def grow_placed(cache: dict, max_seq: int, mesh, placements: dict) -> dict:
+    """:func:`pad_cache_to` on a mesh: the K/V of a G-row prefill cache in
+    the first positions of a ``(layers, G, max_seq, ...)`` cache placed by
+    ``placements`` (``{"k", "v"}``), each rank allocating its block and
+    writing its rows and positions through the slot write (one gather of
+    each prefill leaf).  ``F.pad`` of a DTensor breaks on torch 2.11, and
+    a pad of each rank's block would land inside a sequence sharded over
+    ``model``, not at its global end.  The caller sets the lengths."""
+    kv = cache["kv"]
+    whole = {n: (kv[n].full_tensor() if isinstance(kv[n], DTensor)
+                 else kv[n]) for n in ("k", "v")}
+    grown = {"kv": {n: placed_zeros((*x.shape[:2], max_seq, *x.shape[3:]),
+                                    mesh, placements[n], dtype=x.dtype,
+                                    device=x.device)
+                    for n, x in whole.items()}}
+    for row in range(whole["k"].shape[1]):
+        slot_insert(grown, {"kv": whole}, row, row, 0)
+    return grown
 
 
 def _conform(x, mesh, target):

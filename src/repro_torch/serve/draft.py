@@ -20,18 +20,29 @@ Two sources:
   committed context, then ``k-1`` cached decode steps.  Deliberately
   stateless across ticks (it re-prefills the context each tick) — simple and
   always consistent with rollbacks, at the cost of redundant draft compute.
+
+On a mesh (registered when the proposer is made) the draft's weights are
+placed DTensors, its rollout runs under DTensor's implicit replication as
+the engine's dispatches do, its rollout cache is grown placed
+(:func:`~repro_torch.serve.cache.grow_placed`) and its logits are gathered
+whole before the argmax, so every rank drafts the same tokens.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.core.instrument import capturing
+from repro_torch.dist.sharding import get_mesh
 from repro_torch.models import init_params
 from repro_torch.models.lm import forward
+from repro_torch.train.trainer import serve_shardings
 
-from .cache import pad_cache_to, to_device
+from .cache import grow_placed, pad_cache_to, to_device, to_host
 from .scheduler import pad_group
 
 
@@ -75,7 +86,9 @@ class DraftModelProposer:
     """Greedy ``k``-token rollout from a small draft LM (same vocab as the
     target).  ``params=None`` draws a fresh init from ``seed`` on
     ``device`` — with ``cfg``/``params`` equal to the target's, every draft
-    token is accepted (the degenerate self-draft sanity case)."""
+    token is accepted (the degenerate self-draft sanity case).  On a
+    mesh, every rank draws the weights placed, leaf by leaf
+    (``init_params(shardings=)``)."""
 
     def __init__(self, cfg, params=None, seed: int = 1, device="cuda"):
         if cfg.family != "dense":
@@ -83,14 +96,29 @@ class DraftModelProposer:
                 "draft models must be dense attention LMs (the rollout "
                 "appends through a KV cache)")
         self.cfg = cfg
-        self.params = (params if params is not None
-                       else init_params(cfg, seed, device))
+        self.mesh = get_mesh()
+        if params is None:
+            # the weights' placements depend on no batch or sequence size
+            shardings = (serve_shardings(self.mesh, cfg, 1, 1)[0]
+                         if self.mesh is not None else None)
+            params = init_params(cfg, seed, device, shardings=shardings)
+        self.params = params
         self.device = self.params["final_norm"].device
 
     def _forward(self, *args, **kw):
         # the reference's rollout is jitted: no operator hooks fire
-        with torch.no_grad(), capturing():
+        on_mesh = (implicit_replication() if self.mesh is not None
+                   else contextlib.nullcontext())
+        with torch.no_grad(), capturing(), on_mesh:
             return forward(self.params, *args, self.cfg, **kw)
+
+    def _grow(self, cache: dict, span: int) -> dict:
+        """The prefill's cache with room for ``span`` positions."""
+        if self.mesh is None:
+            return pad_cache_to(cache, self.cfg, span)
+        rows = cache["kv"]["k"].shape[1]
+        return grow_placed(cache, span, self.mesh, serve_shardings(
+            self.mesh, self.cfg, rows, span)[1]["kv"])
 
     def propose(self, contexts, k: int) -> list:
         toks, lens = pad_group([np.asarray(c) for c in contexts], pow2=True)
@@ -100,7 +128,7 @@ class DraftModelProposer:
             logits_index=to_device(lens - 1, self.device))
         # decode appends need k-1 extra cache positions past the bucket; the
         # per-row length override then hides each row's right-pad junk
-        cache = pad_cache_to(cache, self.cfg, toks.shape[1] + k)
+        cache = self._grow(cache, toks.shape[1] + k)
         cache["kv"] = dict(cache["kv"], length=to_device(lens, self.device))
         out = np.zeros((len(contexts), k), np.int32)
         tok = _argmax(logits[:, 0, :])
@@ -115,5 +143,6 @@ class DraftModelProposer:
 
 
 def _argmax(logits: torch.Tensor) -> np.ndarray:
-    """Greedy tokens on the host (float32 first: numpy has no bf16)."""
-    return np.argmax(logits.float().cpu().numpy(), axis=-1).astype(np.int32)
+    """Greedy tokens on the host (float32 first: numpy has no bf16; a
+    DTensor's logits gathered whole)."""
+    return np.argmax(to_host(logits), axis=-1).astype(np.int32)

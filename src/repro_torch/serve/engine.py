@@ -146,7 +146,8 @@ from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.train.trainer import _on_mesh
-from .cache import KVSlotPool, PagedKVPool, PrefixCache, bucket, to_device
+from .cache import (KVSlotPool, PagedKVPool, PrefixCache, bucket, to_device,
+                    to_host)
 from .draft import DraftModelProposer, NgramProposer
 from .faults import FaultInjected, get_plan
 from .scheduler import (Request, RequestState, SamplingParams, Scheduler,
@@ -320,10 +321,12 @@ class ServeEngine:
         engines never shed on compile spikes); ``slow_tick_s``: absolute
         floor for slow-tick detection.
 
-        On a registered mesh, ``params`` must be placed DTensors; the
-        pools are placed and the host decisions agreed (:class:`MeshSync`),
-        so every rank of the mesh builds its engine with the same
-        arguments, at the same time."""
+        On a registered mesh, ``params`` (and ``draft_params``) must be
+        placed DTensors, a drawn draft model is placed leaf by leaf; the
+        pools are placed and the host decisions, a speculative tick's
+        drafts among them, agreed (:class:`MeshSync`), so every rank of
+        the mesh builds its engine with the same arguments, at the same
+        time."""
         if cfg.frontend != "none":
             raise NotImplementedError(
                 "ServeEngine decodes token ids; embedding-frontend archs "
@@ -333,16 +336,7 @@ class ServeEngine:
         #: every dispatch runs where the parameters lie
         self.device = _params_device(params)
         self.mesh = get_mesh()
-        if self.mesh is not None and not all(
-                isinstance(x, DTensor) for x in _leaves(params)):
-            raise ValueError(
-                "serving on a mesh needs placed weights: "
-                "init_params(cfg, seed, device, shardings=serve_shardings("
-                "mesh, ...)[0])")
-        if self.mesh is not None and spec_decode and draft == "model":
-            raise NotImplementedError(
-                "--draft model on a mesh: the draft model would need its "
-                "own placed cache (ROADMAP queue 1); use the n-gram draft")
+        self._check_placed(params)
         #: the engine's clock and plan agreement: on a mesh, rank 0's
         #: clock and one plan for every rank
         self.sync = MeshSync() if self.mesh is not None else HostSync()
@@ -498,6 +492,8 @@ class ServeEngine:
                             f"vocab {cfg.vocab_size}")
                     dparams = (draft_params if draft_params is not None
                                else (params if draft_cfg is None else None))
+                    if dparams is not None:
+                        self._check_placed(dparams)
                     self.proposer = DraftModelProposer(
                         dcfg, dparams, device=self.device)
                 else:
@@ -509,6 +505,14 @@ class ServeEngine:
                 (max_slots, self.spec_k + 1)).copy()
             #: constant per engine; transferred once, not per tick
             self._verify_idx_dev = to_device(self._verify_idx, self.device)
+
+    def _check_placed(self, params) -> None:
+        if self.mesh is not None and not all(
+                isinstance(x, DTensor) for x in _leaves(params)):
+            raise ValueError(
+                "serving on a mesh needs placed weights: "
+                "init_params(cfg, seed, device, shardings=serve_shardings("
+                "mesh, ...)[0])")
 
     # ------------------------------------------------------------ dispatches
     def _forward(self, params, tokens, **kw):
@@ -1047,7 +1051,7 @@ class ServeEngine:
                                    max_len=self.max_seq if pow2 else None)
             logits, cache = self._prefill_cold(
                 self.params, self._dev(toks), self._dev(lens - 1))
-        logits = _host(logits)
+        logits = to_host(logits)
         if self.paged:
             cache = self.pool.local_rows(cache)
         for row, req in enumerate(reqs):
@@ -1098,7 +1102,7 @@ class ServeEngine:
         if req.prefilled:
             self._prefilling.remove(req)
             self._publish(req)
-            self._first_token(req, _host(logits)[0], new_tokens,
+            self._first_token(req, to_host(logits)[0], new_tokens,
                               finished)
         return chunk
 
@@ -1169,7 +1173,7 @@ class ServeEngine:
             logits, self.pool.cache = self._decode(
                 self.params, self.pool.cache,
                 self._dev(self.last_tokens[:, None]))
-        logits = _host(logits)
+        logits = to_host(logits)
         logits, bad = self._blame_nonfinite(active, logits)
         for slot in bad:
             del active[slot]                    # blamed rows sample nothing
@@ -1215,13 +1219,18 @@ class ServeEngine:
                              np.asarray(req.tokens, np.int32)])
              for req in active.values()], k)
         draft_s = time.perf_counter() - t_draft
+        drafts = [np.asarray(d, np.int32)[:k] for d in drafts]
+        # one batch of drafts for every rank before the verify: drafts
+        # that differed by rank would mix inside its collectives unseen
+        self.sync.agree(self.ticks, "drafts", {
+            f"slot {slot}": tuple(int(t) for t in d)
+            for slot, d in zip(active, drafts)})
         span = (self.pool.blocks_per_seq * self.pool.block_size
                 if self.paged else self.pool.max_seq)
         toks = np.zeros((self.pool.slots, k + 1), np.int32)
         lengths = np.full((self.pool.slots,), span, np.int32)
         dlen = {}
         for (slot, req), d in zip(active.items(), drafts):
-            d = np.asarray(d, np.int32)[:k]
             dlen[slot] = len(d)
             toks[slot, 0] = self.last_tokens[slot]
             toks[slot, 1:1 + len(d)] = d
@@ -1251,7 +1260,7 @@ class ServeEngine:
             logits, self.pool.cache = self._verify(self.params, cache,
                                                    self._dev(toks),
                                                    self._verify_idx_dev)
-        logits = _host(logits)
+        logits = to_host(logits)
         pairs = list(zip(list(active.items()), drafts))
         logits, bad = self._blame_nonfinite(active, logits)
         for slot in bad:
@@ -1749,13 +1758,3 @@ def _leaves(tree):
 
 def _params_device(params) -> torch.device:
     return next(_leaves(params)).device
-
-
-def _host(logits: torch.Tensor) -> np.ndarray:
-    """Logits on the host for sampling: float32 on the device first (numpy
-    has no bf16; argmax order and first-index ties are unchanged).  The
-    dispatch's one wait on the card.  A DTensor's are gathered whole to
-    every rank, so every rank samples the same bits."""
-    if isinstance(logits, DTensor):
-        logits = logits.full_tensor()
-    return logits.float().cpu().numpy()

@@ -16,14 +16,20 @@ model 1 and data 2 × model 2, each serving every case once, with a
   over ``model`` on 2 × 2) and once with 1 (replicated); reduced
   zamba2-7b on the slot pool (rows over ``data``, the KV sequence and the
   SSM heads over ``model``).  Greedy tokens are held equal, in float32
-  (the reduced configs' dtype).
+  (the reduced configs' dtype).  Speculative decoding with a draft model
+  (``spec_decode=2``): the target as its own draft, and the target's
+  first layer as the draft (its weights cut from the reference's and
+  placed on the ranks); tokens, and every rank's drafted and accepted
+  counts, equal the reference's.
 * **Against the port's world-1 run** of the same launcher flags: sampled
-  tokens at temperature 0.8 with ``--spec-decode 2``; the request states
+  tokens at temperature 0.8 with ``--spec-decode 2``, with the n-gram
+  draft and with ``--draft model`` (and its counts); the request states
   of ``--chaos one-poison``; ``--policy edf --rate 50`` with rank 1's
   clock 1000 s ahead and running 3x fast (the ranks agree on rank 0's
   clock, so the tokens are world 1's).
-* **Divergence:** one request more on rank 1 makes every rank raise
-  ``RuntimeError`` naming the tick, within the join's timeout.
+* **Divergence:** one request more on rank 1, or one draft token
+  different there, makes every rank raise ``RuntimeError`` naming the
+  tick, within the join's timeout.
 """
 
 import dataclasses
@@ -52,7 +58,19 @@ ENGINE_CASES = {
                  dict(prefix_block=8, prefill_chunk=16), 16),
     "glm4_kv1": ("glm4-9b", {}, dict(prefix_block=8, prefill_chunk=16), 16),
     "zamba2": ("zamba2-7b", {}, {}, 0),
+    "glm4_kv2_draft_self": ("glm4-9b", {"n_kv_heads": 2},
+                            dict(prefix_block=8, prefill_chunk=16,
+                                 spec_decode=2, draft="model"), 16),
+    # the draft: the target's first layer (``draft_layers`` is no engine
+    # option: both sides cut the target's weights to it)
+    "glm4_kv2_draft_layer0": ("glm4-9b", {"n_kv_heads": 2},
+                              dict(prefix_block=8, prefill_chunk=16,
+                                   spec_decode=2, draft="model",
+                                   draft_layers=1), 16),
 }
+#: the reference's (drafted, accepted) on every mesh, as at world 1
+SPEC_CASES = {"glm4_kv2_draft_self": (42, 28),
+              "glm4_kv2_draft_layer0": (90, 4)}
 LAUNCH = ["--arch", "glm4-9b", "--reduced", "--num-requests", "6",
           "--max-slots", "4", "--prompt-len", "24", "--max-new-tokens", "6",
           "--shared-prefix", "16", "--prefix-block", "8"]
@@ -64,6 +82,9 @@ LAUNCHER_CASES = {
               False),
     "skewed_clock": ("2x2", LAUNCH + ["--policy", "edf", "--rate", "50"],
                      True),
+    "sampled_draft_model": ("2x2", LAUNCH + ["--temperature", "0.8",
+                                             "--spec-decode", "2",
+                                             "--draft", "model"], False),
 }
 
 _REFERENCE = """
@@ -85,8 +106,14 @@ for shape in cases.pop("__meshes__"):
                            axis_types=(AxisType.Auto,) * 2))
     for name, (arch, over, opts, shared) in cases.items():
         cfg = dataclasses.replace(RC.reduced(RC.get(arch)), **over)
-        eng = ServeEngine(cfg, init_params(jax.random.PRNGKey(0), cfg),
-                          max_seq=64, max_slots=4, **opts)
+        params = init_params(jax.random.PRNGKey(0), cfg)
+        opts = dict(opts)
+        cut = opts.pop("draft_layers", None)
+        if cut:
+            opts.update(draft_cfg=dataclasses.replace(cfg, n_layers=cut),
+                        draft_params=dict(params, layers=jax.tree.map(
+                            lambda x: x[:cut], params["layers"])))
+        eng = ServeEngine(cfg, params, max_seq=64, max_slots=4, **opts)
         toks, rids, pending, tick = {}, {}, list(enumerate(
             prompts(cfg.vocab_size, shared))), 0
         while pending or eng.has_work:
@@ -100,6 +127,10 @@ for shape in cases.pop("__meshes__"):
                                             eng.requests[rid].tokens]
             tick += 1
         out[f"{name}@{shape}"] = toks
+        if eng.spec_k:
+            out[f"{name}@{shape}:counts"] = {
+                "drafted": eng.drafted_tokens,
+                "accepted": eng.accepted_tokens, "ticks": eng.ticks}
     set_mesh(None)
 print("RESULT " + json.dumps(out))
 """
@@ -153,6 +184,11 @@ def runs(tmp_path_factory):
                                "skew": skew}
         if mesh == "2x2":
             cases["diverge"] = {"kind": "diverge", "arch": "glm4-9b"}
+            cases["diverge_draft"] = {"kind": "diverge_draft",
+                                      "arch": "glm4-9b"}
+            cases["draft_weights"] = {"kind": "draft_weights",
+                                      "arch": "glm4-9b",
+                                      "over": {"n_kv_heads": 2}}
         (d / "cases.json").write_text(json.dumps(cases))
         proc = subprocess.Popen(
             [sys.executable, os.path.join(REPO, "tests",
@@ -209,6 +245,54 @@ def test_sampled_speculative_tokens_equal_world_one(runs, world_one):
         assert got["mesh"] == "2x1"
 
 
+def test_sampled_draft_model_tokens_and_counts_equal_world_one(
+        runs, world_one):
+    """``--draft model`` (the target drafting for itself) at temperature
+    0.8 on 2 x 2: world 1's sampled tokens and drafted/accepted counts on
+    every rank."""
+    _ref, port = runs
+    want = world_one["sampled_draft_model"]
+    spec = want["summary"]["speculative"]
+    assert sum(map(len, want["tokens"].values())) == 36
+    assert spec["drafted_tokens"] > 0
+    for r in port["2x2"]:
+        got = r["sampled_draft_model"]
+        assert got["tokens"] == want["tokens"]
+        assert got["mesh"] == "2x2"
+        assert got["speculative"] == {
+            k: spec[k] for k in ("drafted_tokens", "accepted_tokens")}
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("name", list(SPEC_CASES))
+def test_draft_counts_match_the_reference_mesh_engine(runs, mesh, name):
+    """Every rank drafts and accepts as many tokens, in as many ticks, as
+    the reference's engine on the same mesh; the rollout's cache grew
+    placed, never through ``pad_cache_to``."""
+    reference, port = runs
+    want = reference[f"{name}@{mesh}:counts"]
+    assert (want["drafted"], want["accepted"]) == SPEC_CASES[name]
+    for r in port[mesh]:
+        got = r[name]
+        assert (got["drafted"], got["accepted"], got["ticks"]) == (
+            want["drafted"], want["accepted"], want["ticks"])
+        assert got["pad_calls"] == 0
+
+
+def test_the_draft_on_a_mesh_shares_or_places_its_weights(runs):
+    """On 2 x 2: without a draft config the draft reads the target's own
+    placed tensors (no copy); a draft config's weights are drawn from
+    seed 1 on every rank, each leaf placed as ``serve_shardings`` says
+    and equal to the one-device draw; unplaced draft weights raise."""
+    _ref, port = runs
+    for r in port["2x2"]:
+        got = r["draft_weights"]
+        assert got["shares"] is True
+        assert got["drawn_placed"] and all(got["drawn_placed"].values())
+        assert got["unplaced_error"].startswith(
+            "serving on a mesh needs placed weights")
+
+
 def test_chaos_request_states_equal_world_one(runs, world_one):
     _ref, port = runs
     want = world_one["chaos"]
@@ -238,6 +322,19 @@ def test_a_diverging_rank_makes_every_rank_raise(runs):
     assert len(set(errors)) == 1
     assert errors[0].startswith("serving on a mesh: tick 1: rank 1's plan")
     assert all(r["diverge"]["ticks"] == 1 for r in port["2x2"])
+
+
+def test_a_rank_drafting_differently_makes_every_rank_raise(runs):
+    """A caller's proposer drafts one token differently on rank 1: every
+    rank raises at that tick's drafts, before the verify."""
+    _ref, port = runs
+    got = [r["diverge_draft"] for r in port["2x2"]]
+    errors = [g["error"] for g in got]
+    assert all(e is not None for e in errors), errors
+    assert len(set(errors)) == 1 and len({g["ticks"] for g in got}) == 1
+    assert errors[0].startswith(
+        f"serving on a mesh: tick {got[0]['ticks']}: rank 1's drafts "
+        f"differs from rank 0's in 'slot ")
 
 
 def test_the_ranks_import_neither_jax_nor_the_reference(runs):

@@ -5,20 +5,30 @@ rid), position)`` tuple): schedule invariance, lossless preemption,
 fault recovery byte-identical to the undisturbed run, and speculative
 decoding byte-identical to plain decode.  Also the recovery layer's
 accounting (blame, retry, bisection, deadlines, the degradation ladder)
-and the sampler itself.
+and the sampler itself.  One world-1 case against the reference's engine
+itself: a draft model other than the target, at temperature 0.
 """
 
+import dataclasses
+
+import jax
 import numpy as np
 import pytest
 
+import repro.configs as RC
+from repro.models import init_params as jinit_params
+from repro.serve import SamplingParams as JSamplingParams
+from repro.serve import ServeEngine as JServeEngine
 import repro_torch.configs as TC
 import repro_torch.core as tpasta
+from repro_torch.convert import params_from_numpy
 from repro_torch.core import events as tevents
 from repro_torch.core import session as tsession
 from repro_torch.models import init_params
 from repro_torch.serve import (FaultPlan, FaultSpec, RequestState,
                                SamplingParams, ServeEngine, SLOSpec)
 from repro_torch.serve.scheduler import Request
+from repro_torch.train.optimizer import tree_map
 
 TEMP = 0.8
 
@@ -268,6 +278,42 @@ def test_self_draft_accepts_nearly_all_at_temperature_zero(gpt2):
     assert out == base
     assert eng.accepted_tokens / eng.drafted_tokens > 0.8
     assert eng.decode_steps <= base_eng.decode_steps // 2
+
+
+def test_one_layer_draft_counts_equal_the_reference_engine(monkeypatch):
+    """The target's first layer as the draft model (reduced glm4-9b with
+    2 KV heads, the reference's weights): on the staggered trace (one
+    request every other tick, a 16-token shared prefix) the port drafts,
+    accepts and ticks as the reference's engine does, with its greedy
+    tokens."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "0")   # reference: jnp path
+    jcfg = dataclasses.replace(RC.reduced(RC.get("glm4-9b")), n_kv_heads=2)
+    tcfg = dataclasses.replace(TC.reduced(TC.get("glm4-9b")), n_kv_heads=2)
+    jparams = jinit_params(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    prompts = _prompts(jcfg.vocab_size, (5, 17, 9, 30, 12, 3, 21),
+                       shared=16)
+    runs = []
+    for engine, sp, cfg, params, cut in (
+            (JServeEngine, JSamplingParams, jcfg, jparams, jax.tree.map),
+            (ServeEngine, SamplingParams, tcfg, tparams, tree_map)):
+        draft = dict(params, layers=cut(lambda x: x[:1], params["layers"]))
+        eng = engine(cfg, params, max_seq=64, max_slots=4, prefix_block=8,
+                     prefill_chunk=16, spec_decode=2, draft="model",
+                     draft_cfg=dataclasses.replace(cfg, n_layers=1),
+                     draft_params=draft)
+        out, rids, pending, tick = {}, {}, list(enumerate(prompts)), 0
+        while pending or eng.has_work:
+            if pending and tick % 2 == 0:
+                i, p = pending.pop(0)
+                rids[eng.submit(p, sp(max_new_tokens=8))] = i
+            if eng.has_work:
+                for rid in eng.step()["finished"]:
+                    out[rids[rid]] = [int(t) for t in eng.requests[rid].tokens]
+            tick += 1
+        runs.append((eng.drafted_tokens, eng.accepted_tokens, eng.ticks, out))
+    assert runs[1] == runs[0]
+    assert runs[1][:3] == (90, 4, 19)
 
 
 def test_spec_decode_refuses_stateful_families_and_bad_drafts(gpt2):

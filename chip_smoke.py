@@ -26,8 +26,14 @@ non-zero and print no result):
                 256 MiB write between calls) and warm, against the plain
                 version, ``torch.mm(out_dtype=float32)`` on the bf16
                 operands and ``torch.matmul`` in float32; then the same
-                products with float32 operands on the simt body, checked
-                and timed cold;
+                products with float32 operands on the simt body (its split
+                and loader printed), each trace equal to the plain
+                version's, within the float32 bound and bitwise equal
+                across two calls, timed cold with its sum pass apart,
+                beside the plain version and ``torch.matmul`` in float32;
+                and the simt body's other branches (float32 K = 4098 and
+                K = 4, bf16 K = 100, a misaligned float32 x) held the same
+                way;
   5. fallback — a fine session without a hotness map (launches the object
                 histogram kernel) and one whose hotness map is too large to
                 fuse (launches the object and hotness kernels), each held
@@ -502,15 +508,15 @@ FLUSH_BYTES = 256 << 20         # written between calls: five times the L2
 FLUSH_KERNEL = "bitwise_not"    # in the name of the flush's kernel
 
 
-def cold_ms(fn, flush, iters: int = 10, tries: int = 3):
-    """Device time per call of ``fn()`` with a cold L2: before each call
-    ``flush()`` rewrites FLUSH_BYTES with a ``bitwise_not`` kernel.  Only
-    ``fn``'s own device records count: the flush's are known by their
-    kernel's name, and records that start before the first flush (late
-    ones from calls outside the window) are left out.  A window that did
-    not record every flush, or nothing of ``fn``, lost records and is taken
-    again, as in ``device_ms``; None when no window of ``tries`` was
-    whole."""
+def cold_parts_ms(fn, flush, iters: int = 10, tries: int = 3):
+    """Device time per call of ``fn()`` with a cold L2, by kernel name:
+    before each call ``flush()`` rewrites FLUSH_BYTES with a
+    ``bitwise_not`` kernel.  Only ``fn``'s own device records count: the
+    flush's are known by their kernel's name, and records that start
+    before the first flush (late ones from calls outside the window) are
+    left out.  A window that did not record every flush, or nothing of
+    ``fn``, lost records and is taken again, as in ``device_ms``; None when
+    no window of ``tries`` was whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -527,11 +533,43 @@ def cold_ms(fn, flush, iters: int = 10, tries: int = 3):
         if len(flushes) != iters:
             continue
         t0 = min(e.time_range.start for e in flushes)
-        us = sum(e.time_range.elapsed_us() for e in dev
-                 if FLUSH_KERNEL not in e.name and e.time_range.start >= t0)
-        if us > 0:
-            return us / iters / 1e3
+        parts: dict = {}
+        for e in dev:
+            if FLUSH_KERNEL not in e.name and e.time_range.start >= t0:
+                parts[e.name] = parts.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / iters / 1e3
+        if sum(parts.values()) > 0:
+            return parts
     return None
+
+
+def cold_ms(fn, flush, iters: int = 10, tries: int = 3):
+    """The sum of :func:`cold_parts_ms`: every device record of one call."""
+    parts = cold_parts_ms(fn, flush, iters, tries)
+    return None if parts is None else sum(parts.values())
+
+
+def simt_check(label: str, x, w) -> float:
+    """Two calls of ``matmul_traced`` on the simt body: the trace equal to
+    the plain version's, ``out`` finite and within gamma_K * |x|@|w| of the
+    float64 product (gamma_K = K*u / (1 - K*u), u = 2**-24: a float32 FMA
+    sum over K terms in any order, split or not), the two calls bitwise
+    equal.  Fails on a miss; returns the largest |err| / bound."""
+    out, trace = im.matmul_traced(x, w)
+    again, _ = im.matmul_traced(x, w)
+    k = x.shape[1]
+    if not torch.equal(trace, im.matmul_traced_ref(x, w)[1]):
+        fail(f"{label}: trace differs from the plain version's")
+    if not torch.equal(out, again):
+        fail(f"{label}: two calls on the same operands differ")
+    err = (out.double() - x.double() @ w.double()).abs()
+    gamma = k * 2.0**-24 / (1 - k * 2.0**-24)
+    bound = gamma * (x.double().abs() @ w.double().abs())
+    worst = float((err / bound.clamp_min(1e-300)).max())
+    if not bool((err <= bound).all()) or not bool(torch.isfinite(out).all()):
+        fail(f"{label}: out off the float64 product ({worst:.3f} of the "
+             "float32 bound)")
+    return worst
 
 
 def mm_bf16(x, w):
@@ -627,20 +665,19 @@ def phase_in_kernel(proj) -> dict:
             fail(f"in-kernel {name}: the profiler did not record the cold-L2 "
                  f"calls ({cold})")
         # the SIMT body on the same operands in float32 (the body float32
-        # operands take): its trace exact, its product within the float32
-        # bound, timed cold like the rest
-        out32, trace32 = im.matmul_traced(xf, wf)
-        err32 = (out32.double() - xf.double() @ wf.double()).abs()
-        bound32 = gamma * (xf.double().abs() @ wf.double().abs())
-        if not torch.equal(trace32, im.matmul_traced_ref(xf, wf)[1]) \
-                or not bool((err32 <= bound32).all()):
-            fail(f"in-kernel {name}: the float32 (simt) body is off its "
-                 "plain version's trace or the float32 bound")
-        del out32, trace32, err32, bound32
-        simt = cold_ms(lambda: im.matmul_traced(xf, wf), flush)
-        if simt is None:
+        # operands take): its plan, its checks (simt_check), timed cold like
+        # the rest, the split's sum pass apart
+        split32, loader32 = im._simt_plan(m, k, n, ops._sms(xf.device),
+                                          xf.dtype)
+        worst32 = simt_check(f"in-kernel {name} float32 (simt)", xf, wf)
+        parts = cold_parts_ms(lambda: im.matmul_traced(xf, wf), flush)
+        plain32 = cold_ms(lambda: im.matmul_traced_ref(xf, wf), flush)
+        if parts is None or plain32 is None:
             fail(f"in-kernel {name}: the profiler did not record the "
                  "float32 calls")
+        simt = sum(parts.values())
+        simt_sum = sum(v for kname, v in parts.items()
+                       if "matmul_traced_sum" in kname)
         del xf, wf
         flops = 2 * m * n * k
         nbytes = x.numel() * x.itemsize + w.numel() * w.itemsize \
@@ -656,7 +693,12 @@ def phase_in_kernel(proj) -> dict:
                "split": plans[name][1],
                "simt_f32": {"ms": simt, "bound_ms": simt_bound,
                             "bound_by": "operations",
-                            "library_ms": cold["library_f32_ms"]}}
+                            "library_ms": cold["library_f32_ms"],
+                            "plain_ms": plain32,
+                            "split": split32, "loader": loader32,
+                            "sum_ms": simt_sum,
+                            "sum_share": simt_sum / simt,
+                            "worst_of_bound": worst32}}
         by_product[name] = row
         timings.add(f"cold profiler, warm {warm['timing']}")
         for key in sums:
@@ -676,12 +718,21 @@ def phase_in_kernel(proj) -> dict:
               f"{row['call_ms']:.5f}; max abs err {e:.3e} vs float64, "
               f"{worst:.4f} of the float32 bound; bitwise equal across two "
               f"calls; {flops / row['ms'] / 1e9:.1f} TFLOP/s cold; float32 "
-              f"operands on the simt body: cold-L2 device ms {simt:.5f} bound "
-              f"{simt_bound:.5f} (operations at 67 TFLOP/s) torch.matmul f32 "
-              f"{row['library_f32_ms']:.5f}", flush=True)
+              f"operands on the simt body (split {split32}, loader "
+              f"{loader32}): cold-L2 device ms {simt:.5f} (sum pass "
+              f"{simt_sum:.5f}, {simt_sum / simt:.4f} of it) bound "
+              f"{simt_bound:.5f} (operations at 67 TFLOP/s; "
+              f"{simt / simt_bound:.2f}x) plain {plain32:.5f} torch.matmul f32 "
+              f"{row['library_f32_ms']:.5f} "
+              f"({simt / row['library_f32_ms']:.2f}x); {worst32:.4f} of the "
+              f"float32 bound, bitwise equal across two calls", flush=True)
         free_card()
     del flush_buf
     free_card()
+    branches = simt_branches()
+    simt_sums = {key: sum(r["simt_f32"][key] for r in by_product.values())
+                 for key in ("ms", "bound_ms", "plain_ms", "library_ms",
+                             "sum_ms")}
     shapes = ", ".join(f"{nm} ({x.shape[0]}x{x.shape[1]}x{w.shape[1]})"
                        for nm, x, w in proj)
     return {"name": "instrumented_matmul", "route": "cuda",
@@ -695,8 +746,54 @@ def phase_in_kernel(proj) -> dict:
                        "operands; library_f32_ms: torch.matmul on the "
                        "operands widened to float32",
             "bodies": bodies, "by_product": by_product,
+            "simt_f32": simt_sums, "simt_branches": branches,
             "path": "in-kernel tier (glm4-9b layer-0 projections)",
             "shapes": shapes}
+
+
+def simt_branches() -> dict:
+    """The simt body's branches off the four float32 products, each
+    through :func:`simt_check`: float32 with K = 4098 (scalar loader,
+    split), K = 4 (one slab), bf16 with K = 100 (scalar, widened) and a
+    float32 x at a 16-byte-misaligned address (storage offset 1, scalar);
+    with the compiler's and the occupancy API's facts of each instance."""
+    dev = torch.device("cuda")
+    info = {f"{dt}/{loader}": im._simt_info(dev, dt, loader)
+            for dt, loader in ((torch.float32, "async"),
+                               (torch.float32, "scalar"),
+                               (torch.bfloat16, "scalar"))}
+    print(f"in-kernel simt instances (registers, spilled bytes, shared "
+          f"bytes a block, blocks an SM): {info}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(shape, dt=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    m, n = 128, 512
+    cases = [("float32 K=4098", rnd((m, 4098)), rnd((4098, n)), "scalar"),
+             ("float32 K=4", rnd((m, 4)), rnd((4, n)), "async"),
+             ("bf16 K=100", rnd((m, 100), torch.bfloat16),
+              rnd((100, n), torch.bfloat16), "scalar"),
+             ("float32 x misaligned", rnd((m * 4096 + 1,))[1:].view(m, 4096),
+              rnd((4096, n)), "scalar")]
+    out = {"instances": info}
+    for label, x, w, want in cases:
+        k = x.shape[1]
+        aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+        split, loader = im._simt_plan(m, k, n, ops._sms(dev), x.dtype,
+                                      aligned)
+        body = im._plan(m, k, n, x.dtype, im._resident(dev), aligned)[0]
+        if loader != want or body != "simt":
+            fail(f"in-kernel simt {label}: body {body}, loader {loader}; "
+                 f"expected simt, {want}")
+        worst = simt_check(f"in-kernel simt {label}", x, w)
+        out[label] = {"split": split, "loader": loader,
+                      "worst_of_bound": worst}
+        print(f"in-kernel simt {label} ({m}, {k}) @ ({k}, {n}): split "
+              f"{split}, loader {loader}; trace equal to the plain version's,"
+              f" {worst:.4f} of the float32 bound, bitwise equal across two "
+              f"calls", flush=True)
+    return out
 
 
 # ------------------------------------------------------------------ phase 5

@@ -42,10 +42,10 @@ SIGNATURES = {
     # n_tbins, counts, hist, clusters, cluster, threads, smem, stream
     "trace_aggregate": [_I, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                         _I, _I, _I, _I, _P],
-    # device, x, w, out, trace, m, k, n, is_bf16, split, bytes_read,
-    # bytes_written, stream
-    "instrumented_matmul": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+    # device, x, w, out, trace, workspace, m, k, n, is_bf16, body, split,
+    # loader, bytes_read, bytes_written, stream
+    "instrumented_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P],
 }
 
 _libs: dict = {}        # kernel name -> loaded ctypes.CDLL (process-wide)

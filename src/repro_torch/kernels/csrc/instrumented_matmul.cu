@@ -35,9 +35,42 @@
 //   cudaGetDriverEntryPoint (no -lcuda at link time), and passed as
 //   __grid_constant__ parameters.
 // * SIMT body (float32 operands, whose tensor-core path would be TF32; and
-//   bf16 with K not a multiple of 8): one 128x128 tile per block, K in
-//   32-deep slabs, an 8x8 micro-tile of float32 FMA per thread, bf16
-//   widened on load; bound by its arithmetic at 67 TFLOP/s of float32.
+//   bf16 that TMA cannot describe): float32 FMA, no tensor cores, so it is
+//   bound by its arithmetic, 2*M*N*K operations at 67 TFLOP/s of float32.
+//   It replaces a first, simple body (one 32-deep slab in flight, K not
+//   split) that lost for two causes, and the design answers each:
+//   - too few blocks on the narrow products (a 128 x 4096 x 4096 product
+//     is 32 tiles on 132 SMs): K is split S ways over blockIdx.z where the
+//     tiles leave SMs idle (S from `_simt_plan`, the smallest S with
+//     tiles * S >= 0.9 * SMs, balanced slab ranges).  Each split block
+//     stores its float32 partial tile into a workspace (S, M, N); a second
+//     kernel, matmul_traced_sum, launched by the same entry on the same
+//     stream, sums a tile's S partials in split order 0..S-1, stores the
+//     tile and writes its record.  No float atomics: two calls give the
+//     same bits.
+//   - low per-block efficiency: slabs 32 deep go through a ring of
+//     SIMT_STAGES shared-memory stages, slab s + SIMT_STAGES - 1 copied
+//     while slab s is multiplied.  Where both operands' rows can be
+//     described in 16 bytes (float32, K % 4 == 0, 16-byte aligned: the
+//     "async" loader) the copies are cp.async: w's rows in 16-byte
+//     cp.async.cg copies, n-major as they lie; x's in 4-byte cp.async.ca
+//     copies that transpose it to k-major on the way (a 16-byte copy cannot
+//     transpose), its k rows padded to BM + 4 floats so that a warp's 32
+//     copies (8 k x 4 rows) land in 32 banks.  cp.async's src-size zero
+//     fills the ragged last slab.  Every other case (bf16, K % 4 != 0, an
+//     unaligned operand: the "scalar" loader) loads and widens with plain
+//     loads into the same ring.  256 threads, 8 warps of 32 x 64 outputs, a
+//     thread 8 x 8 float32 accumulators as four 4 x 4 blocks: one k step
+//     is 4 shared loads of 16 bytes (x's 8 rows, w's 8 columns) per 64 FMA,
+//     the fragments double-buffered in registers so that step k+1's loads
+//     issue under step k's FMAs.
+//   Two stages, not three or four: a stage is 33,280 bytes, and two blocks
+//   of two stages (66,560 bytes each) leave more of the SM's 256 KB of L1
+//   and shared memory to L1, which x's 4-byte copies go through; on the
+//   H100 two stages beat three by 3-5% and four (one block an SM) by 11%
+//   (ab_simt_body.py; the cause is not measured).  The cp.async instance
+//   takes 127 registers a thread and no spills (nvcc -Xptxas -v), and the
+//   SM holds 2 blocks (the occupancy API; instrumented_matmul_simt_info).
 //
 // M and N are multiples of 128 (the wrapper checks), since the record is
 // defined per 128x128 tile.
@@ -56,11 +89,19 @@ namespace {
 constexpr int BM = 128;
 constexpr int BN = 128;
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // ------------------------------------------------------------- SIMT body
-constexpr int SIMT_BK = 32;
+constexpr int SIMT_BK = 32;                  // K depth of one stage
+constexpr int SIMT_STAGES = 2;
 constexpr int SIMT_THREADS = 256;
-constexpr int TM = 8;  // rows per thread
-constexpr int TN = 8;  // columns per thread
+constexpr int XS_LD = BM + 4;                // floats per k row of x's stage (k-major)
+constexpr int XS_FLOATS = SIMT_BK * XS_LD;
+constexpr int SIMT_STAGE_FLOATS = XS_FLOATS + SIMT_BK * BN;
+constexpr int SIMT_SMEM = SIMT_STAGES * SIMT_STAGE_FLOATS * 4;  // 66,560 bytes
+constexpr int SUM_THREADS = 1024;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -74,72 +115,182 @@ __device__ __forceinline__ void write_record(int* trace, long long tile, int i, 
   rec[3] = bytes_written;
 }
 
-template <typename T>
+// Asynchronous copies of `bytes` (4 or 16) from global to shared memory;
+// `full` false copies nothing and fills the destination with zeros.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool full) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(full ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(full ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Returns once at most `PENDING` of this thread's copy groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void lds4(float* d, const float* s) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+// Grid (N/128, M/128, S): block z multiplies K slabs [z*slabs/S,
+// (z+1)*slabs/S) of tile (blockIdx.y, blockIdx.x).  With S = 1 it stores
+// the tile into dst (the output) and writes its record; with S > 1 it
+// stores its partial tile into plane z of dst (the (S, M, N) workspace).
+// ASYNC: the cp.async loader (float32, K % 4 == 0, 16-byte aligned).
+template <typename T, bool ASYNC>
 __global__ void __launch_bounds__(SIMT_THREADS)
-    matmul_traced_simt(const T* __restrict__ x, const T* __restrict__ w,
-                       float* __restrict__ out, int* __restrict__ trace, int k, int n,
-                       int bytes_read, int bytes_written) {
-  // x slab stored transposed (k-major) and padded so the transposing
-  // stores of a warp land in distinct banks
-  __shared__ float xs[SIMT_BK][BM + 1];
-  __shared__ float ws[SIMT_BK][BN];
+    matmul_traced_simt(const T* __restrict__ x, const T* __restrict__ w, float* __restrict__ dst,
+                       int* __restrict__ trace, int k, int n, int bytes_read,
+                       int bytes_written) {
+  extern __shared__ __align__(16) float simt_smem[];
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const long long row0 = static_cast<long long>(blockIdx.y) * BM;
-  const long long col0 = static_cast<long long>(blockIdx.x) * BN;
-  const T* xb = x + row0 * k;
-  const T* wb = w + col0;
+  const int col0 = blockIdx.x * BN;
+  const int slabs = (k + SIMT_BK - 1) / SIMT_BK;
+  const int kb0 = static_cast<int>(static_cast<long long>(blockIdx.z) * slabs / gridDim.z);
+  const int count =
+      static_cast<int>(static_cast<long long>(blockIdx.z + 1) * slabs / gridDim.z) - kb0;
 
-  float acc[TM][TN];
+  // copies: x element (kt, rt + 8i), i < 16, a warp 8 k x 4 rows (32 banks
+  // at the padded pitch); w row 8i + warp (async, 16 bytes a lane) or row
+  // 2i + tid/128 (scalar), a warp one contiguous run of a row
+  const int kt = 8 * (warp % 4) + lane % 8;
+  const int rt = 4 * (warp / 4) + lane / 8;
+  auto load = [&](int stage, int kb) {
+    float* xs = simt_smem + stage * SIMT_STAGE_FLOATS;
+    float* ws = xs + XS_FLOATS;
+    const int k0 = kb * SIMT_BK;
+    const bool xin = k0 + kt < k;
+    // clamped into the operand: a zero-filling copy still names an address
+    const T* xsrc = x + (row0 + rt) * k + min(k0 + kt, k - 1);
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
+    for (int i = 0; i < BM / 8; ++i) {
+      float* d = xs + kt * XS_LD + rt + 8 * i;
+      const T* src = xsrc + 8LL * i * k;
+      if constexpr (ASYNC)
+        cp_async<4>(d, src, xin);
+      else
+        *d = xin ? widen(*src) : 0.f;
+    }
+    if constexpr (ASYNC) {
 #pragma unroll
-    for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+      for (int i = 0; i < SIMT_BK / 8; ++i) {
+        const int kr = 8 * i + warp;
+        const T* src = w + static_cast<long long>(min(k0 + kr, k - 1)) * n + col0 + 4 * lane;
+        cp_async<16>(ws + kr * BN + 4 * lane, src, k0 + kr < k);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < SIMT_BK / 2; ++i) {
+        const int kr = 2 * i + tid / 128;
+        const int c = tid % 128;
+        ws[kr * BN + c] =
+            k0 + kr < k ? widen(w[static_cast<long long>(k0 + kr) * n + col0 + c]) : 0.f;
+      }
+    }
+  };
 
-  for (int k0 = 0; k0 < k; k0 += SIMT_BK) {
-    // x: BM x BK, consecutive threads on consecutive k of one row
+  // compute: warp (warp/2, warp%2) takes rows 32*(warp/2) + [0, 32) and
+  // columns 64*(warp%2) + [0, 64); the thread rows ra + {0..3, 16..19} and
+  // columns cb + {0..3, 32..35}
+  const int ra = 32 * (warp / 2) + 4 * (lane / 8);
+  const int cb = 64 * (warp % 2) + 4 * (lane % 8);
+  float acc[8][8];
 #pragma unroll
-    for (int i = 0; i < BM * SIMT_BK / SIMT_THREADS; ++i) {
-      const int e = tid + i * SIMT_THREADS;
-      const int r = e / SIMT_BK;
-      const int kk = e % SIMT_BK;
-      const int kg = k0 + kk;
-      xs[kk][r] = kg < k ? widen(xb[static_cast<long long>(r) * k + kg]) : 0.f;
-    }
-    // w: BK x BN, consecutive threads on consecutive columns of one row
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int i = 0; i < SIMT_BK * BN / SIMT_THREADS; ++i) {
-      const int e = tid + i * SIMT_THREADS;
-      const int kk = e / BN;
-      const int c = e % BN;
-      const int kg = k0 + kk;
-      ws[kk][c] = kg < k ? widen(wb[static_cast<long long>(kg) * n + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < SIMT_BK; ++kk) {
-      float a[TM];
-      float b[TN];
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
 #pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = xs[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) b[c] = ws[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
+  for (int s = 0; s < SIMT_STAGES - 1; ++s) {
+    if (s < count) load(s, kb0 + s);
+    if constexpr (ASYNC) cp_async_commit();
   }
+  for (int s = 0; s < count; ++s) {
+    // slab s has landed for every thread, and every thread is done with
+    // slab s - 1, whose stage takes slab s + SIMT_STAGES - 1
+    if constexpr (ASYNC) cp_async_wait<SIMT_STAGES - 2>();
+    __syncthreads();
+    const int next = s + SIMT_STAGES - 1;
+    if (next < count) load(next % SIMT_STAGES, kb0 + next);
+    if constexpr (ASYNC) cp_async_commit();
 
+    const float* xs = simt_smem + (s % SIMT_STAGES) * SIMT_STAGE_FLOATS + ra;
+    const float* ws = simt_smem + (s % SIMT_STAGES) * SIMT_STAGE_FLOATS + XS_FLOATS + cb;
+    float a[2][8], b[2][8];
+    lds4(a[0], xs);
+    lds4(a[0] + 4, xs + 16);
+    lds4(b[0], ws);
+    lds4(b[0] + 4, ws + 32);
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
+    for (int kk = 0; kk < SIMT_BK; ++kk) {
+      const int cur = kk % 2;
+      if (kk + 1 < SIMT_BK) {
+        lds4(a[cur ^ 1], xs + (kk + 1) * XS_LD);
+        lds4(a[cur ^ 1] + 4, xs + (kk + 1) * XS_LD + 16);
+        lds4(b[cur ^ 1], ws + (kk + 1) * BN);
+        lds4(b[cur ^ 1] + 4, ws + (kk + 1) * BN + 32);
+      }
 #pragma unroll
-    for (int c = 0; c < TN; ++c)
-      out[(row0 + ty + 16 * r) * n + col0 + tx + 16 * c] = acc[r][c];
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[cur][r], b[cur][c], acc[r][c]);
+    }
+  }
+  if constexpr (ASYNC) cp_async_wait<0>();
 
-  if (tid == 0)
+  float* tile = dst + blockIdx.z * static_cast<long long>(gridDim.y) * BM * n + row0 * n + col0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float* row = tile + static_cast<long long>(ra + r % 4 + 16 * (r / 4)) * n + cb;
+    *reinterpret_cast<float4*>(row) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    *reinterpret_cast<float4*>(row + 32) =
+        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  }
+  if (gridDim.z == 1 && tid == 0)
+    write_record(trace, static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x,
+                 blockIdx.y, blockIdx.x, bytes_read, bytes_written);
+}
+
+// Grid (N/128, M/128): sums the `split` partial tiles of the (split, M, N)
+// workspace in split order, stores the tile and writes its record.
+__global__ void __launch_bounds__(SUM_THREADS)
+    matmul_traced_sum(const float* __restrict__ part, float* __restrict__ out,
+                      int* __restrict__ trace, int m, int n, int split, int bytes_read,
+                      int bytes_written) {
+  const long long plane = static_cast<long long>(m) * n;
+  const long long base = static_cast<long long>(blockIdx.y) * BM * n + blockIdx.x * BN;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < BM * BN / 4; e += SUM_THREADS) {
+    const long long at = base + static_cast<long long>(e / (BN / 4)) * n + (e % (BN / 4)) * 4;
+    float4 v = *reinterpret_cast<const float4*>(part + at);
+    for (int q = 1; q < split; ++q) {
+      const float4 u = *reinterpret_cast<const float4*>(part + q * plane + at);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    *reinterpret_cast<float4*>(out + at) = v;
+  }
+  if (threadIdx.x == 0)
     write_record(trace, static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x,
                  blockIdx.y, blockIdx.x, bytes_read, bytes_written);
 }
@@ -155,10 +306,6 @@ constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX_BYTES;
 constexpr int PART_LD = BN + 4;              // floats per row of the partial tile
 constexpr int WG_SMEM = STAGES * STAGE_BYTES + 1024 /* alignment */ + 2 * STAGES * 8;
 static_assert(BM * PART_LD * 4 <= STAGES * STAGE_BYTES, "partial tile reuses the ring");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
@@ -427,6 +574,70 @@ cudaError_t launch_wgmma(const void* x, const void* w, float* out, int* trace, i
   return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(matmul_traced_wgmma), args);
 }
 
+template <typename T>
+using SimtKernel = void (*)(const T*, const T*, float*, int*, int, int, int, int);
+
+// The SIMT body's instance, opted into its dynamic shared memory.
+template <typename T, bool ASYNC>
+cudaError_t simt_kernel(SimtKernel<T>* kern) {
+  *kern = matmul_traced_simt<T, ASYNC>;
+  return allow_smem(*kern, SIMT_SMEM);
+}
+
+template <typename T, bool ASYNC>
+cudaError_t launch_simt_body(const void* x, const void* w, float* dst, int* trace, int m, int k,
+                             int n, int split, int bytes_read, int bytes_written,
+                             cudaStream_t stream) {
+  SimtKernel<T> kern;
+  cudaError_t err = simt_kernel<T, ASYNC>(&kern);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(n / BN, m / BM, split), SIMT_THREADS, SIMT_SMEM, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), dst, trace, k, n, bytes_read,
+      bytes_written);
+  return cudaGetLastError();
+}
+
+// The SIMT body with K split `split` ways (workspace (split, m, n) float32
+// when split > 1), then its sum; loader 1 is cp.async, 0 scalar loads.
+cudaError_t launch_simt(const void* x, const void* w, float* out, int* trace, float* workspace,
+                        int m, int k, int n, int is_bf16, int split, int loader,
+                        int bytes_read, int bytes_written, cudaStream_t stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+  if (split < 1 || (split > 1 && workspace == nullptr) || (loader != 0 && loader != 1) ||
+      (loader == 1 && (is_bf16 || k % 4 || !aligned)))
+    return cudaErrorInvalidValue;
+  float* dst = split > 1 ? workspace : out;
+  cudaError_t err;
+  if (loader == 1)
+    err = launch_simt_body<float, true>(x, w, dst, trace, m, k, n, split, bytes_read,
+                                        bytes_written, stream);
+  else if (is_bf16)
+    err = launch_simt_body<__nv_bfloat16, false>(x, w, dst, trace, m, k, n, split, bytes_read,
+                                                 bytes_written, stream);
+  else
+    err = launch_simt_body<float, false>(x, w, dst, trace, m, k, n, split, bytes_read,
+                                         bytes_written, stream);
+  if (err != cudaSuccess || split == 1) return err;
+  matmul_traced_sum<<<dim3(n / BN, m / BM), SUM_THREADS, 0, stream>>>(
+      workspace, out, trace, m, n, split, bytes_read, bytes_written);
+  return cudaGetLastError();
+}
+
+template <typename T, bool ASYNC>
+cudaError_t simt_info(int* info) {
+  SimtKernel<T> kern;
+  cudaError_t err = simt_kernel<T, ASYNC>(&kern);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], kern, SIMT_THREADS, SIMT_SMEM);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = static_cast<int>(attr.sharedSizeBytes) + SIMT_SMEM;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // How many clusters of `split` blocks of the wgmma body the card holds at
@@ -443,35 +654,43 @@ extern "C" int instrumented_matmul_resident(int device, int split, int* count) {
                                         &cfg);
 }
 
+// What the compiler and the occupancy API say of the SIMT body with this
+// operand type and loader: info[0] registers a thread, info[1] bytes a
+// thread spills to local memory, info[2] shared memory bytes a block,
+// info[3] blocks an SM holds at once.  Returns the CUDA error.
+extern "C" int instrumented_matmul_simt_info(int device, int is_bf16, int loader, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (loader == 1) return is_bf16 ? cudaErrorInvalidValue : simt_info<float, true>(info);
+  return is_bf16 ? simt_info<__nv_bfloat16, false>(info) : simt_info<float, false>(info);
+}
+
 // x (m, k) and w (k, n), both row-major and of one type (bf16 when
-// is_bf16, else float32); m and n multiples of 128.  split = 0 runs the
-// SIMT body; split = S >= 1 the wgmma body (bf16, k a multiple of 8, x and
-// w 16-byte aligned) with K split S ways over a cluster of S blocks.  out
-// (m, n) float32 and trace (m/128 * n/128, 4) int32 are written in full.
-// Returns the CUDA error of the launch.
+// is_bf16, else float32); m and n multiples of 128.  body 1 runs the wgmma
+// body (bf16, k a multiple of 8, x and w 16-byte aligned) with K split
+// `split` ways over a cluster of `split` blocks; body 0 the SIMT body with
+// K split `split` ways and its loader (1 cp.async: float32, k a multiple
+// of 4, x and w 16-byte aligned; 0 scalar loads), summing the partials
+// through `workspace`, (split, m, n) float32, when split > 1.  out (m, n)
+// float32 and trace (m/128 * n/128, 4) int32 are written in full.  Returns
+// the first CUDA error of the launches, or cudaErrorInvalidValue for
+// arguments that do not go together.
 extern "C" int instrumented_matmul_launch(int device, const void* x, const void* w,
-                                          void* out, void* trace, int m, int k, int n,
-                                          int is_bf16, int split, int bytes_read,
-                                          int bytes_written, void* stream) {
+                                          void* out, void* trace, void* workspace, int m,
+                                          int k, int n, int is_bf16, int body, int split,
+                                          int loader, int bytes_read, int bytes_written,
+                                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   int* t = static_cast<int*>(trace);
-  if (split > 0) {
-    if (!is_bf16) return cudaErrorInvalidValue;
+  if (body == 1) {
+    if (!is_bf16 || split < 1) return cudaErrorInvalidValue;
     err = launch_wgmma(x, w, o, t, m, k, n, split, bytes_read, bytes_written, s);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
-  const dim3 grid(n / BN, m / BM);
-  if (is_bf16) {
-    matmul_traced_simt<__nv_bfloat16><<<grid, SIMT_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), o, t, k, n,
-        bytes_read, bytes_written);
-  } else {
-    matmul_traced_simt<float><<<grid, SIMT_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), o, t, k, n, bytes_read,
-        bytes_written);
-  }
-  return cudaGetLastError();
+  if (body != 0) return cudaErrorInvalidValue;
+  return launch_simt(x, w, o, t, static_cast<float*>(workspace), m, k, n, is_bf16, split, loader,
+                     bytes_read, bytes_written, s);
 }

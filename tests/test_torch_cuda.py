@@ -174,6 +174,117 @@ def test_matmul_traced_body_counter(rng, card, dtype, k, body):
     assert ops.launches["instrumented_matmul"] == 1
 
 
+def _held_to_float64(out, x, w):
+    """out within gamma_K * |x|@|w| of the float64 product (K terms)."""
+    k = x.shape[1]
+    exact = x.double() @ w.double()
+    gamma = k * 2.0**-24 / (1 - k * 2.0**-24)
+    bound = gamma * (x.double().abs() @ w.double().abs())
+    return bool(((out.double() - exact).abs() <= bound).all())
+
+
+def _simt_case(x, w, split, loader):
+    """Two calls of the simt body with the plan's (split, loader): the
+    trace exact, out within the float32 bound, the two bitwise equal."""
+    m, k = x.shape
+    n = w.shape[1]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    assert im._plan(m, k, n, x.dtype, im._resident(x.device),
+                    aligned)[0] == "simt"
+    assert im._simt_plan(m, k, n, ops._sms(x.device), x.dtype,
+                         aligned) == (split, loader)
+    ops.reset_launches()
+    out, trace = im.matmul_traced(x, w)
+    again, _ = im.matmul_traced(x, w)
+    torch.cuda.synchronize()
+    assert im.bodies == {"wgmma": 0, "simt": 2}
+    assert ops.launches["instrumented_matmul"] == 2
+    assert torch.equal(out, again)
+    assert torch.equal(trace, im.matmul_traced_ref(x, w)[1])
+    assert _held_to_float64(out, x, w)
+
+
+def _f32(rng, shape, card):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(card)
+
+
+@pytest.mark.parametrize("m,k,n,split", [(128, 4096, 4096, 4),
+                                         (128, 13696, 512, 30)])
+def test_matmul_traced_simt_split_k(rng, card, m, k, n, split):
+    """float32 split-K shapes of the simt body (the H100's splits; another
+    card's come from its own SM count): cp.async loader, partials summed in
+    split order."""
+    x, w = _f32(rng, (m, k), card), _f32(rng, (k, n), card)
+    want = im._simt_plan(m, k, n, ops._sms(card), torch.float32)
+    if ops._sms(card) == 132:
+        assert want == (split, "async")
+    _simt_case(x, w, *want)
+
+
+@pytest.mark.parametrize("k,loader", [(4004, "async"), (4098, "scalar")])
+def test_matmul_traced_simt_selects_rows_of_w(card, rng, k, loader):
+    """x picks row (31 i + 5) % K of w for output row i, spread over every
+    split and the ragged last slab, so out must be those rows of w exactly:
+    a wrong transpose or pad of x's k-major stage, a wrong column of w's
+    stage, a slab summed twice or left out, or no zero fill moves, doubles
+    or loses values."""
+    m, n = 128, 512
+    w = _f32(rng, (k, n), card)
+    rows = (31 * torch.arange(m) + 5) % k
+    x = torch.zeros((m, k), device=card)
+    x[torch.arange(m), rows] = 1
+    split, got = im._simt_plan(m, k, n, ops._sms(card), torch.float32)
+    assert split > 1 and got == loader
+    ops.reset_launches()
+    out, _ = im.matmul_traced(x, w)
+    torch.cuda.synchronize()
+    assert im.bodies["simt"] == 1
+    assert torch.equal(out, w[rows.to(card)])
+
+
+@pytest.mark.parametrize("case", ["f32_k4098", "f32_misaligned_x",
+                                  "bf16_k100", "f32_k4"])
+def test_matmul_traced_simt_other_branches(rng, card, case):
+    """The branches off the main products: float32 with K % 4 != 0 (scalar
+    loader, split), float32 x at a 16-byte-misaligned address (scalar
+    loader), bf16 with K % 8 != 0 (scalar loader, widened) and a K of one
+    ragged slab (cp.async, no split)."""
+    m, n = 128, 512
+    if case == "f32_k4098":
+        x, w, want = _f32(rng, (m, 4098), card), _f32(rng, (4098, n), card), \
+            "scalar"
+    elif case == "f32_misaligned_x":
+        k = 4096
+        flat = _f32(rng, (m * k + 1,), card)
+        x, w, want = flat[1:].view(m, k), _f32(rng, (k, n), card), "scalar"
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    elif case == "bf16_k100":
+        x, w, want = _bf16(rng, (m, 100), card), _bf16(rng, (100, n), card), \
+            "scalar"
+    else:
+        x, w, want = _f32(rng, (m, 4), card), _f32(rng, (4, n), card), "async"
+    k = x.shape[1]
+    split, loader = im._simt_plan(m, k, n, ops._sms(card), x.dtype,
+                                  x.data_ptr() % 16 == 0)
+    assert loader == want
+    _simt_case(x, w, split, loader)
+
+
+def test_simt_entry_refuses_a_loader_off_its_operands(card):
+    """The C entry returns an error, and the wrapper raises, for the
+    cp.async loader on operands it cannot copy in 16 bytes."""
+    m, k, n = 128, 4096, 128
+    x = torch.zeros((m * k + 1,), device=card)[1:].view(m, k)
+    w = torch.zeros((k, n), device=card)
+    out = torch.empty((m, n), device=card)
+    trace = torch.empty((1, 4), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        ops._launch("instrumented_matmul", card, x.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), trace.data_ptr(), None, m, k, n, 0, 0, 1,
+                    im.LOADERS.index("async"), 0, 0)
+
+
 def _fused_case(card, a, t, starts, ends, base, nb, ntb, shift):
     a, t = _units(a, card), _units(t, card)
     s, e = _units(starts, card), _units(ends, card)

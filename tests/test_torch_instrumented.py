@@ -98,3 +98,23 @@ def test_mismatched_operands_raise():
         im.matmul_traced(x.half(), w.half())
     with pytest.raises(ValueError, match="chain"):
         im.matmul_traced(x, torch.ones((32, 128)))
+
+
+@pytest.mark.parametrize("m,k,n,sms", [(128, 300, 128, 8),
+                                       (256, 200, 256, 16)])
+def test_simt_split_partials_sum_to_the_reference(rng, m, k, n, sms):
+    """The simt body's split K, emulated in float32: each split's partial
+    product over its ``_simt_slabs`` range, summed in split order 0..S-1 as
+    its sum kernel does, agrees with the reference kernel within the
+    reference test's tolerance (so the ranges cover K once)."""
+    split, _ = im._simt_plan(m, k, n, sms, torch.float32)
+    assert split > 1
+    jx, jw, tx, tw = _operands(rng, m, k, n, "float32")
+    want_out, _ = jmatmul_traced(jx, jw, interpret=True)
+    got = None
+    for a, b in im._simt_slabs(k, split):
+        lo, hi = a * im.SIMT_BK, min(b * im.SIMT_BK, k)
+        part = tx[:, lo:hi] @ tw[lo:hi]
+        got = part if got is None else got + part
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_out), rtol=1e-5,
+                               atol=1e-4)

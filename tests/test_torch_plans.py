@@ -1,5 +1,6 @@
 """The port's pure launch plans, on the CPU: which body and K split
-``matmul_traced`` takes (``instrumented_matmul._plan``), and how the fused
+``matmul_traced`` takes (``instrumented_matmul._plan``; the simt body's
+own split and loader, ``_simt_plan``), and how the fused
 trace kernel spreads records over its clusters (``ops.fused_plan``,
 ``ops.fused_shares``).  The kernels compute the same splits on the card;
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold their results
@@ -83,6 +84,48 @@ def test_plan_body(dtype, k, aligned, body):
     assert got == body
     if body == "simt":
         assert split == 1
+
+
+def test_simt_plan_splits_the_narrow_glm4_products():
+    """On the H100's 132 SMs: wq and w_down (32 tiles) split 4 ways into
+    128 blocks; w_gate (107 tiles, more than half the SMs) and lm_head
+    (1184) do not split."""
+    plans = [im._simt_plan(*shape, SMS["h100"], torch.float32)
+             for shape in SHAPES[:4]]
+    assert plans == [(4, "async"), (1, "async"), (4, "async"), (1, "async")]
+
+
+@pytest.mark.parametrize("card", sorted(SMS))
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_simt_plan_fills_the_card_and_covers_k(card, m, k, n):
+    """tiles * S reaches 90% of the SMs or S = 1; every split has K slabs
+    of its own, contiguous, covering ceil(K / SIMT_BK) once."""
+    sms = SMS[card]
+    split, _ = im._simt_plan(m, k, n, sms, torch.float32)
+    tiles = (m // im.BM) * (n // im.BN)
+    assert split == 1 or 10 * tiles * split >= 9 * sms
+    ranges = im._simt_slabs(k, split)
+    assert len(ranges) == split
+    assert ranges[0][0] == 0 and ranges[-1][1] == -(-k // im.SIMT_BK)
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    assert all(a < b for a, b in ranges)
+
+
+@pytest.mark.parametrize("dtype,k,aligned,loader", [
+    (torch.float32, 4096, True, "async"),
+    (torch.float32, 4, True, "async"),
+    (torch.float32, 13696, True, "async"),
+    (torch.float32, 4098, True, "scalar"),
+    (torch.float32, 4097, True, "scalar"),
+    (torch.float32, 4096, False, "scalar"),
+    (torch.bfloat16, 4096, True, "scalar"),
+    (torch.bfloat16, 100, True, "scalar"),
+    (torch.bfloat16, 100, False, "scalar")])
+def test_simt_plan_loader(dtype, k, aligned, loader):
+    """cp.async where both operands' rows can be described in 16 bytes:
+    float32, K a multiple of 4, both operands 16-byte aligned."""
+    assert im._simt_plan(128, k, 512, SMS["h100"], dtype, aligned)[1] == loader
 
 
 def test_reset_launches_resets_the_body_counter():

@@ -169,7 +169,10 @@ non-zero and print no result):
                 if it ends within 10 minutes; the peak estimate of a
                 full-width stablelm-1.6b train step against
                 ``torch.cuda.max_memory_allocated`` of the step run (0.8 to
-                1.2); glm4-9b at full width, 16 greedy decodes through the
+                1.2), at one microbatch and at two, whose measured peak
+                may be at most 1.01x the one-microbatch step's (a step
+                freeing each microbatch's gradients once summed); glm4-9b
+                at full width, 16 greedy decodes through the
                 two-tier KV cache against the dense one (equal tokens).
                 No trace kernel may launch.
 
@@ -2812,6 +2815,10 @@ def phase_spec_mesh() -> dict:
 STATIC_TIMEOUT_S = 900          # the child of phase 14, every part included
 KIMI_TIMEOUT_S = 600            # kimi-k2's 512-rank cell, a child of its own
 PEAK_RATIO = (0.8, 1.2)         # static peak estimate / measured peak
+#: a microbatched step's measured peak over the one-microbatch step's: a
+#: step holding the last microbatch's gradients through the update reads
+#: one float32 gradient tree (6.6 GB for stablelm-1.6b) above
+PEAK_MICRO_MAX = 1.01
 TWO_TIER_TOKENS = 16
 #: dry-run cells on the fake 16 x 16 production mesh
 DRYRUN_CELLS = (("qwen3-32b", "train_4k"), ("qwen3-32b", "prefill_32k"),
@@ -2864,10 +2871,11 @@ def _static_cell(arch: str, shape: str, multi_pod: bool) -> dict:
     return res
 
 
-def _static_peak() -> dict:
-    """stablelm-1.6b at full width, one train step (world 1): the static
-    peak estimate of its trace (fake CUDA tensors) against
-    ``torch.cuda.max_memory_allocated`` of the same step, run."""
+def _static_peak(microbatches: int = 1) -> dict:
+    """stablelm-1.6b at full width, one train step (world 1) of
+    ``microbatches``: the static peak estimate of its trace (fake CUDA
+    tensors) against ``torch.cuda.max_memory_allocated`` of the same
+    step, run."""
     from repro_torch import analysis
     from repro_torch.core.trace import trace_step
     cfg = configs.get("stablelm-1.6b")
@@ -2876,7 +2884,7 @@ def _static_peak() -> dict:
     opt_cfg = OptConfig()
     state = init_opt_state(params, opt_cfg)
     batch = _card_batch(cfg, "cuda")
-    step = make_train_step(cfg, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, microbatches=microbatches)
     t0 = time.perf_counter()
     trace = trace_step(step, params, state, batch, device_type="cuda")
     trace_s = time.perf_counter() - t0
@@ -2955,7 +2963,8 @@ def _static_child(out_path: str, part: str) -> None:
         res = {"lint": _static_lint(),
                "cells": {f"{a} {s}": _static_cell(a, s, False)
                          for a, s in DRYRUN_CELLS},
-               "peak": _static_peak(), "two_tier": _static_two_tier()}
+               "peak": _static_peak(), "peak_m2": _static_peak(2),
+               "two_tier": _static_two_tier()}
     res["launches"] = dict(ops.launches)
     with open(out_path, "w") as f:
         json.dump(res, f)
@@ -3076,6 +3085,25 @@ def phase_static() -> None:
           f"loss {p['loss']!r}; on {CARD}", flush=True)
     if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
         fail(f"static: the peak estimate is {ratio:.4f} of the measured")
+    p2 = res["peak_m2"]
+    ratio2 = p2["estimate"] / p2["measured"]
+    over = p2["measured"] / p["measured"]
+    print(f"static peak: stablelm-1.6b full width, one train step of 2 "
+          f"microbatches (world 1, batch 2 x 64, one row a microbatch): "
+          f"estimate {p2['estimate'] / 1e9:.4f} GB (the fake run's own "
+          f"high-water mark {p2['fake_peak'] / 1e9:.4f} GB; "
+          f"{p2['records']} records, traced in {p2['trace_s']:.1f} s) "
+          f"against torch.cuda.max_memory_allocated "
+          f"{p2['measured'] / 1e9:.4f} GB of the step run: ratio "
+          f"{ratio2:.4f} (held to {PEAK_RATIO}); peak over the one-"
+          f"microbatch step's {over:.4f} (held to at most "
+          f"{PEAK_MICRO_MAX}); loss {p2['loss']!r}; on {CARD}", flush=True)
+    if not PEAK_RATIO[0] <= ratio2 <= PEAK_RATIO[1]:
+        fail(f"static: the 2-microbatch peak estimate is {ratio2:.4f} of "
+             f"the measured")
+    if over > PEAK_MICRO_MAX:
+        fail(f"static: the 2-microbatch step peaks at {over:.4f} x the "
+             f"one-microbatch step's")
     t = res["two_tier"]
     same = t["tokens_two_tier"] == t["tokens_dense"]
     print(f"static two-tier: glm4-9b full width (float32 compute), 16-token "

@@ -24,18 +24,24 @@ STACKING_LOOPS = ("layers",)
 
 
 def _held_grads(trace) -> set:
-    """The gradients a train step holds until it returns (its gradient
-    tree is a local of the step while the update runs): storages the
-    backward defines in an argument's shape that a record after the
-    backward reads."""
-    bwd = [i for i, r in enumerate(trace.records) if r.backward]
-    if not bwd:
+    """The gradient tree a train step holds until it returns: the step's
+    local ``grads`` is the tree its update reads, and it stays bound while
+    the update runs.  These are the storages that records of the step's
+    ``"update"`` region (``core.trace.region``) read, that a record before
+    the region defined in an argument's shape, and that are no argument:
+    the backward's outputs at one microbatch, the summed tree divided by
+    the microbatch count at more (each microbatch's own tree is dead once
+    added).  A step that marks no update holds none."""
+    spans = [(lo, hi) for name, lo, hi in trace.regions if name == "update"]
+    if not spans:
         return set()
+    lo, hi = spans[-1]
     shapes = {tuple(shape) for _dtype, shape, _s in trace.arg_leaves}
-    grads = {s for i in bwd for s, shape in zip(trace.records[i].out_ids,
-                                                 trace.records[i].out_shapes)
-             if tuple(shape) in shapes}
-    return grads & {s for r in trace.records[bwd[-1] + 1:] for s in r.in_ids}
+    before = {s for r in trace.records[:lo]
+              for s, shape in zip(r.out_ids, r.out_shapes)
+              if tuple(shape) in shapes}
+    read = {s for r in trace.records[lo:hi] for s in r.in_ids}
+    return (before & read) - trace.persistent
 
 
 def _liveness(trace) -> dict:

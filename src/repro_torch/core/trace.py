@@ -149,6 +149,8 @@ class StepTrace:
     out_leaves: list = dataclasses.field(default_factory=list)
     #: loop iterations as (name, first record, end record, mult)
     iterations: list = dataclasses.field(default_factory=list)
+    #: the step's marked regions as (name, first record, end record)
+    regions: list = dataclasses.field(default_factory=list)
     #: the live-storage high-water mark of the fake run itself (bytes)
     measured_peak_bytes: float = 0.0
     layers_traced: int | None = None
@@ -184,6 +186,21 @@ def scope(name: str):
         yield
     finally:
         rec.scopes.pop()
+
+
+@contextlib.contextmanager
+def region(name: str):
+    """Mark the records issued inside as the step's region ``name`` (the
+    train step's ``"update"``, which the peak estimate reads)."""
+    rec = _ACTIVE
+    if rec is None or rec.paused:
+        yield
+        return
+    first = len(rec.records)
+    try:
+        yield
+    finally:
+        rec.regions.append((name, first, len(rec.records)))
 
 
 def mark_wait(*tensors) -> None:
@@ -285,6 +302,7 @@ class _Recorder(TorchDispatchMode):
         self.seq_marks: list = []
         self.seq_mults: list = []
         self.iterations: list = []
+        self.regions: list = []
         self.paused = False
         self._groups: dict = {}
         self.names, self.sizes, self.coords = [], [], {}
@@ -691,7 +709,8 @@ def trace_step(fn, *args, mesh_shape: tuple = (), mesh_dims: tuple = (),
             storage_bytes=dict(rec.nbytes), persistent=persistent,
             outputs={s for _d, _s, s in out_leaves},
             arg_leaves=arg_leaves, out_leaves=out_leaves,
-            iterations=rec.iterations, measured_peak_bytes=rec.peak,
+            iterations=rec.iterations, regions=rec.regions,
+            measured_peak_bytes=rec.peak,
             layers_traced=rec.seen.get("layers", (None,))[0],
             layers_total=rec.seen.get("layers", (None, None))[1],
             microbatches_traced=rec.seen.get("microbatches", (None,))[0],

@@ -367,12 +367,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                                            _microbatch(labels, i, m), cfg)
                 grads = tree_map(torch.add, grads, g)
                 lsum = lsum + l
+                # dead once summed, as in the reference's scan body: the
+                # last microbatch's tree must not live through the update
+                del l, _p, g
             grads = tree_map(lambda g: g / m, grads)
             loss = lsum / m
         grads, grad_sqnorm = pod_sync(_like(grads, params))
-        new_params, new_opt, om = adamw_update(params, grads, opt_state,
-                                               opt_cfg,
-                                               grad_sqnorm=grad_sqnorm)
+        with trace.region("update"):
+            new_params, new_opt, om = adamw_update(params, grads, opt_state,
+                                                   opt_cfg,
+                                                   grad_sqnorm=grad_sqnorm)
         metrics = {"loss": loss, **om,
                    "tokens": torch.full((), inputs.shape[0] * inputs.shape[1],
                                         dtype=torch.float32,

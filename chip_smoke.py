@@ -224,10 +224,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 import repro_torch.configs as configs                      # noqa: E402
 import repro_torch.core as pasta                           # noqa: E402
-from repro_torch.core.instrument import EagerInstrumenter  # noqa: E402
-from repro_torch.core.pool import MemoryPool               # noqa: E402
-from repro_torch.core.processor import EventProcessor      # noqa: E402
-from repro_torch.core.tools import LocatorTool             # noqa: E402
+from repro_torch import probe                              # noqa: E402
 from repro_torch.kernels import build, ops, ref            # noqa: E402
 from repro_torch.kernels import instrumented_matmul as im  # noqa: E402
 from repro_torch.launch import analyze                     # noqa: E402
@@ -1251,44 +1248,9 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-class HostSpans:
-    """Wall-clock totals of the analysis path's layers, by wrapping their
-    methods for the duration of a ``with`` block."""
-
-    LAYERS = (("forward", analyze, "forward"),
-              ("op", EagerInstrumenter, "op"),
-              ("pool alloc", MemoryPool, "alloc"),
-              ("trace emission", EagerInstrumenter, "_emit_trace"),
-              ("trace reduction", EventProcessor, "_preprocess_trace"),
-              ("locator stack capture", LocatorTool, "_capture_stack"),
-              ("frees", EagerInstrumenter, "_on_free"))
-
-    def __init__(self):
-        self.totals = dict.fromkeys([name for name, *_ in self.LAYERS], 0.0)
-        self._orig = []
-
-    def _wrap(self, name, fn):
-        def timed_fn(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                self.totals[name] += time.perf_counter() - t0
-        return timed_fn
-
-    def __enter__(self):
-        for name, cls, attr in self.LAYERS:
-            fn = getattr(cls, attr)
-            self._orig.append((cls, attr, fn))
-            setattr(cls, attr, self._wrap(name, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for cls, attr, fn in self._orig:
-            setattr(cls, attr, fn)
-
-
 def phase_profile(cfg) -> None:
+    """One traced step: the device's busy time and idle share, and the
+    host spans of the port's probe, which the profiler turns on."""
     from torch.profiler import ProfilerActivity, profile
     hot = analyze.hotness_config(cfg, STEPS)
     shapes = TraceShapes()
@@ -1300,12 +1262,18 @@ def phase_profile(cfg) -> None:
         prof.start()
         t.append(time.perf_counter())
     free_card()
-    with HostSpans() as spans:
-        analyze.run(cfg, 1, "cuda", hot, seed=SEED, observe=observe)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t[0]) * 1e6
-        prof.stop()
+    probe.reset()
+    analyze.run(cfg, 1, "cuda", hot, seed=SEED, observe=observe)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t[0]) * 1e6
+    prof.stop()
     free_card()
+    spans: dict = {}
+    for row in probe.snapshot():
+        if row["step"] is not None:
+            for name, s in row["spans"].items():
+                spans[name] = spans.get(name, 0) + s["self_ns"]
+    probe.reset()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     groups = {"trace kernels": ("_histogram_", "trace_aggregate_kernel"),
@@ -1318,11 +1286,12 @@ def phase_profile(cfg) -> None:
         sums[key] += e.time_range.elapsed_us()
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
     parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in sums.items())
-    host = ", ".join(f"{k} {v * 1e3:.1f} ms"
-                     for k, v in spans.totals.items())
+    host = ", ".join(f"{k} {v / 1e6:.1f} ms" for k, v in
+                     sorted(spans.items(), key=lambda kv: -kv[1]))
     print(f"profile: one {cfg.name} full-width step (traced), wall "
           f"{wall_us / 1e3:.1f} ms, {shapes.events} trace buffers; host "
-          f"spans: {host}, analysis_s {shapes.analysis_s * 1e3:.1f} ms; "
+          f"spans (self): {host or 'none'}, analysis_s "
+          f"{shapes.analysis_s * 1e3:.1f} ms; "
           f"device busy {busy / 1e3:.2f} ms, idle share "
           f"{1 - busy / wall_us:.4f}; device time by kind: {parts}",
           flush=True)

@@ -33,6 +33,7 @@ import numpy as np
 from .annotate import GridIdFilter, current_region
 from . import capture as capture_mod
 from . import events as events_mod
+from .. import probe
 from .events import (Event, EventBatch, EventKind, EventRing, KIND_CODE,
                      KIND_LIST)
 
@@ -176,6 +177,7 @@ class EventHandler:
         self._dispatch(batch)
 
     # ------------------------------------------------------------- dispatch
+    @probe.wrap("handler dispatch")
     def _dispatch(self, batch: EventBatch) -> None:
         for fn in tuple(self._batch_subs):
             fn(batch)
@@ -217,7 +219,9 @@ class EventHandler:
         return ev
 
     def step_start(self, step: int) -> None:
-        """Step edge: a flush boundary for the buffered path."""
+        """Step edge: a flush boundary for the buffered path, and the start
+        of the step's row of the probe (:mod:`repro_torch.probe`)."""
+        probe.start_step(step)
         self._step = step
         self.emit_row(EventKind.STEP_START, name=f"step{step}", step=step)
         if self._buffered:
@@ -228,6 +232,7 @@ class EventHandler:
                       attrs=attrs)
         if self._buffered:
             self.flush()
+        probe.end_step()
 
     def sync(self, name: str = "sync") -> None:
         self.emit_row(EventKind.SYNC, name=name)

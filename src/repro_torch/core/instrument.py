@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.fx
 
+from .. import probe
 from .events import Event, EventKind
 from .pool import MemoryPool
 
@@ -78,12 +79,14 @@ class EagerInstrumenter:
         weakref.finalize(arr, self._on_free, key)
         return h
 
+    @probe.wrap("frees")
     def _on_free(self, key) -> None:
         h = self._tensors.pop(key, None)
         if h is not None and h.live:
             self.pool.free(h)
 
     # ------------------------------------------------------------------ op
+    @probe.wrap("op")
     def op(self, name: str, inputs, outputs) -> None:
         handles = [self.tensor(a, f"{name}.in{i}")
                    for i, a in enumerate(inputs)]
@@ -95,23 +98,29 @@ class EagerInstrumenter:
             self._emit_trace(name, handles)
         self.handler.operator_end(name)
 
+    @probe.wrap("trace emission")
     def _emit_trace(self, name: str, handles) -> None:
-        recs = []
-        for h in handles:
-            n = max(1, min(h.size // self.stride,
-                           self.max_records // max(len(handles), 1)))
-            recs.append(h.addr + (np.arange(n, dtype=np.int64)
-                                  * self.stride) % h.size)
-        addrs = np.concatenate(recs)
+        probe.count("trace buffers")
+        with probe.span("emit records"):
+            recs = []
+            for h in handles:
+                n = max(1, min(h.size // self.stride,
+                               self.max_records // max(len(handles), 1)))
+                recs.append(h.addr + (np.arange(n, dtype=np.int64)
+                                      * self.stride) % h.size)
+            addrs = np.concatenate(recs)
         # access-verified granularity = live TENSOR ranges (the paper's
         # object-to-access map at allocator granularity), NOT pool chunks —
         # this is exactly the tensor-vs-object distinction of §V-C1.
-        objs = sorted(t.addr_range() for t in self.pool.live_tensors())
-        self.handler.trace_buffer(
-            addrs, name=name, kernel=name, objects=objs,
-            object_sizes=[e - s for s, e in objs],
-            time=(self.time_source() if self.time_source
-                  else time.perf_counter() - self.t0))
+        with probe.span("emit live objects"):
+            objs = sorted(t.addr_range() for t in self.pool.live_tensors())
+            sizes = [e - s for s, e in objs]
+        with probe.span("emit dispatch"):
+            self.handler.trace_buffer(
+                addrs, name=name, kernel=name, objects=objs,
+                object_sizes=sizes,
+                time=(self.time_source() if self.time_source
+                      else time.perf_counter() - self.t0))
 
     # ------------------------------------------------------------- control
     def __enter__(self):

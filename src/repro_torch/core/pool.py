@@ -26,6 +26,7 @@ import bisect
 import dataclasses
 import itertools
 
+from .. import probe
 from .events import EventKind, next_seq
 
 CHUNK_ALIGN = 2 * 1024 * 1024        # 2 MiB — UVM/hotness block granularity
@@ -143,6 +144,7 @@ class MemoryPool:
         return obj
 
     # ---------------------------------------------------------------- tensors
+    @probe.wrap("pool alloc")
     def alloc(self, nbytes: int, name: str = "") -> TensorHandle:
         size = _round_up(max(nbytes, 1), TENSOR_ROUND)
         obj = None
@@ -184,6 +186,7 @@ class MemoryPool:
 
     # ------------------------------------------------------------------ views
     def live_tensors(self) -> list:
+        probe.count("pool handles scanned", len(self.tensors))
         return [t for t in self.tensors.values() if t.live]
 
     def object_of(self, addr: int) -> MemoryObject | None:

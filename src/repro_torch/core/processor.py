@@ -30,12 +30,24 @@ import time
 
 import numpy as np
 
+from .. import probe
 from .events import (Event, EventBatch, EventKind, KIND_CODE, _SIGNED_CODES,
                      _SIGNED_SIZE_KINDS)
 from .handler import EventHandler
 
 _KC_KERNEL = int(KIND_CODE[EventKind.KERNEL_LAUNCH])
 _KC_TRACE = int(KIND_CODE[EventKind.TRACE_BUFFER])
+_TOOL_SPANS: dict = {}     # tool class -> its probe span's name
+
+
+def _tool_span(tool) -> str:
+    """``tool <registry name>`` (the class name for an unregistered
+    tool): the probe's span around each call into ``tool``."""
+    name = _TOOL_SPANS.get(type(tool))
+    if name is None:
+        key = getattr(tool, "REGISTRY_NAME", type(tool).__name__)
+        name = _TOOL_SPANS[type(tool)] = f"tool {key}"
+    return name
 
 
 class EventProcessor:
@@ -117,6 +129,7 @@ class EventProcessor:
         return batch
 
     # -------------------------------------------------------------- dispatch
+    @probe.wrap("processor")
     def _on_batch(self, batch: EventBatch) -> None:
         if len(batch) == 1:
             # scalar fast path: one-row batches (the ``emit`` compat shim)
@@ -134,7 +147,8 @@ class EventProcessor:
                 self._preprocess_trace(ev)
             for tool in self.tools:
                 if tool.wants(ev.kind):
-                    tool.on_event(ev)
+                    with probe.span(_tool_span(tool)):
+                        tool.on_event(ev)
             return
         self.normalize_batch(batch)
         tmask = batch.kinds == _KC_TRACE
@@ -146,7 +160,8 @@ class EventProcessor:
         present = batch.present_kinds()
         for tool in self.tools:
             if any(tool.wants(k) for k in present):
-                tool.on_batch(batch)
+                with probe.span(_tool_span(tool)):
+                    tool.on_batch(batch)
 
     def _on_event(self, ev: Event) -> None:
         """Scalar compatibility shim — wraps a one-row batch."""
@@ -161,6 +176,7 @@ class EventProcessor:
         return {type(t).__name__: t.finalize() for t in self.tools}
 
     # ------------------------------------------------------- trace analysis
+    @probe.wrap("trace reduction")
     def _preprocess_trace(self, ev: Event) -> None:
         """Aggregate a raw access-record buffer; attach the aggregate to the
         event so tools see small, structured data (never raw records)."""

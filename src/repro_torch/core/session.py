@@ -33,6 +33,7 @@ from typing import Iterator, Mapping
 
 import numpy as np
 
+from .. import probe
 from .handler import EventHandler
 from .processor import EventProcessor
 from .tools.base import resolve_tools
@@ -299,6 +300,7 @@ class Session:
         self.tools = self.processor.tools
 
     # ------------------------------------------------------------- reports
+    @probe.wrap("session reports")
     def reports(self) -> Reports:
         """Flush pending events and collect every tool's report, keyed by
         registry name (``REGISTRY_NAME``; class name for unregistered

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import traceback
 
+from ... import probe
 from ..events import EventKind
 from .base import PastaTool, register
 
@@ -55,6 +56,7 @@ class LocatorTool(PastaTool):
     def on_operator_start(self, ev):
         self._capture_stack()
 
+    @probe.wrap("locator stack capture")
     def _capture_stack(self):
         if self.knobs.get("capture_python_stack"):
             self._last_py_stack = [

@@ -15,7 +15,9 @@ Two levels:
     is no fallback from the kernel to the plain version.
 
 Every kernel launch adds one to ``launches[<kernel>]``; each launch of
-``instrumented_matmul`` also adds one to ``bodies[<body>]``.
+``instrumented_matmul`` also adds one to ``bodies[<body>]``.  The host
+API's copies, which wait for the stream's queued work, add their host time
+to the probe's ``reduction wait ns`` counter (:mod:`repro_torch.probe`).
 
 Addresses in 512-byte units are lossless because the pool rounds tensors
 to 512 B.
@@ -23,11 +25,13 @@ to 512 B.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import probe
 from . import build, ref
 
 UNIT_SHIFT = 9                 # 512-byte address units
@@ -61,29 +65,40 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------- host side
+@probe.wrap("reduce prep")
 def _to_units(addrs_bytes) -> np.ndarray:
     a = np.asarray(addrs_bytes, dtype=np.int64) >> UNIT_SHIFT
     assert a.max(initial=0) < 2**31, "address space exceeds int32 units"
     return a.astype(np.int32)
 
 
+@probe.wrap("reduce prep")
 def _time_bins(times, t_max: float, n_tbins: int) -> np.ndarray:
     t = np.asarray(times, dtype=np.float64)
     tb = (t / max(t_max, 1e-12) * n_tbins).astype(np.int32)
     return np.minimum(tb, np.int32(n_tbins - 1))
 
 
+@probe.wrap("reduce copies")
 def _on(x: np.ndarray, device) -> torch.Tensor:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available; pass device='cpu' for the plain "
                            "version")
-    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    t0 = time.perf_counter_ns()
+    out = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    # a copy from pageable memory waits for the stream's queued work
+    probe.count("reduction wait ns", time.perf_counter_ns() - t0)
+    return out
 
 
+@probe.wrap("reduce copies")
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().astype(np.int64)
+    t0 = time.perf_counter_ns()
+    out = t.cpu().numpy().astype(np.int64)
+    probe.count("reduction wait ns", time.perf_counter_ns() - t0)
+    return out
 
 
 def object_histogram(addrs_bytes, starts_bytes, ends_bytes, device="cuda"):
@@ -307,6 +322,7 @@ def _plan_args(plan: Plan) -> tuple:
             plan.smem)
 
 
+@probe.wrap("reduce launch")
 def object_histogram_t(addrs: torch.Tensor, starts: torch.Tensor,
                        ends: torch.Tensor) -> torch.Tensor:
     """int32 unit tensors → int32[K] counts."""
@@ -322,6 +338,7 @@ def object_histogram_t(addrs: torch.Tensor, starts: torch.Tensor,
     return counts
 
 
+@probe.wrap("reduce launch")
 def hotness_histogram_t(addrs: torch.Tensor, tbins: torch.Tensor, base: int,
                         n_blocks: int, n_tbins: int,
                         block_shift: int) -> torch.Tensor:
@@ -339,6 +356,7 @@ def hotness_histogram_t(addrs: torch.Tensor, tbins: torch.Tensor, base: int,
     return hist
 
 
+@probe.wrap("reduce launch")
 def trace_aggregate_t(addrs: torch.Tensor, tbins: torch.Tensor,
                       starts: torch.Tensor, ends: torch.Tensor, base: int,
                       n_blocks: int, n_tbins: int, block_shift: int):

@@ -11,12 +11,14 @@ Every TRACE_BUFFER of access records is reduced on ``device`` by the
 hand-written CUDA kernels (the fused counts+hotness kernel when it fits).
 
     PYTHONPATH=src python -m repro_torch.launch.analyze [--arch glm4-9b]
-        [--steps 4] [--reduced] [--device cuda]
+        [--steps 4] [--reduced] [--device cuda] [--spans]
 
 ``--arch`` is any of the twelve architectures of
 :mod:`repro_torch.configs`.  Those with ``frontend="embed"`` (qwen2-vl-72b,
 musicgen-large) take (2, 64, d_model) float32 embeddings in place of
-tokens, as the example feeds them.
+tokens, as the example feeds them.  ``--spans`` turns the port's probe
+(:mod:`repro_torch.probe`) on and prints, at the end, each span's
+self time a step and the counters a step.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 import repro_torch.configs as configs
 import repro_torch.core as pasta
+from repro_torch import probe
 from repro_torch.core.pool import CHUNK_ALIGN
 from repro_torch.core.tools import offload
 from repro_torch.models import init_params, forward
@@ -135,6 +138,33 @@ def run(cfg: ModelConfig, steps: int = 4, device="cuda",
     return session.reports(), logits, schedule
 
 
+def span_lines(rows) -> list:
+    """Lines for the probe's step rows (:func:`probe.snapshot`): each
+    span's self time a step, largest first, then each counter a step."""
+    steps = [r for r in rows if r["step"] is not None]
+    if not steps:
+        return ["spans: no step was run"]
+    spans: dict = {}
+    counts: dict = {}
+    for r in steps:
+        for name, s in r["spans"].items():
+            acc = spans.setdefault(name, [0, 0, 0])
+            acc[0] += s["self_ns"]
+            acc[1] += s["total_ns"]
+            acc[2] += s["calls"]
+        for name, n in r["counts"].items():
+            counts[name] = counts.get(name, 0) + n
+    n = len(steps)
+    out = [f"spans over {n} steps (ms a step: self, total; calls a step):"]
+    for name, (self_ns, total_ns, calls) in sorted(
+            spans.items(), key=lambda kv: -kv[1][0]):
+        out.append(f"  {name}: {self_ns / n / 1e6:.3f} self, "
+                   f"{total_ns / n / 1e6:.3f} total, {calls / n:g} calls")
+    out.append("counters a step: " + ", ".join(
+        f"{name} {v / n:g}" for name, v in sorted(counts.items())))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="glm4-9b",
@@ -143,7 +173,11 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="the reference example's tiny variant")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--spans", action="store_true",
+                    help="turn the probe's spans on and print them at the end")
     args = ap.parse_args(argv)
+    if args.spans:
+        probe.enable()
 
     cfg = configs.get(args.arch)
     if args.reduced:
@@ -170,6 +204,9 @@ def main(argv=None):
         print(f"offload @ oversubscription {ov}: "
               f"object={plan['object']['speedup_vs_none']:.2f}x "
               f"tensor={plan['tensor']['speedup_vs_none']:.2f}x vs on-demand")
+    if args.spans:
+        for line in span_lines(probe.snapshot()):
+            print(line)
 
 
 if __name__ == "__main__":
